@@ -1,0 +1,21 @@
+"""eGPU core on PyTorch: the port of ``repro.core`` (interpreter tier)."""
+from .config import (EGPUConfig, CostParams, table4_configs, table5_configs,
+                     benchmark_config)
+from .isa import (Op, Typ, Instr, OpClass, encode_word, decode_word, iw_bits,
+                  TSC_FULL, TSC_WF0, TSC_CPU, TSC_MCU, PERSONALITIES)
+from .assembler import Asm, ProgramImage, schedule
+from .machine import (MachineState, init_state, shared_as_f32, shared_as_u32,
+                      shared_as_i32, profile, state_from_numpy,
+                      state_to_numpy)
+from .executor import make_step, pad_image, run_program
+from . import cost, semantics
+
+__all__ = [
+    "EGPUConfig", "CostParams", "table4_configs", "table5_configs",
+    "benchmark_config", "Op", "Typ", "Instr", "OpClass", "encode_word",
+    "decode_word", "iw_bits", "TSC_FULL", "TSC_WF0", "TSC_CPU", "TSC_MCU",
+    "PERSONALITIES", "Asm", "ProgramImage", "schedule", "MachineState",
+    "init_state", "shared_as_f32", "shared_as_u32", "shared_as_i32",
+    "profile", "state_from_numpy", "state_to_numpy", "run_program",
+    "make_step", "pad_image", "cost", "semantics",
+]
