@@ -22,7 +22,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    after the CUDA runs, and each must be > 0;
 4. time each kernel, its plain version and one PyTorch library call
    for the same function, at the main path's shapes (CUDA events,
-   warm-up, median).
+   warm-up, median);
+5. the LM serving path (``repro_torch.launch.serve``): the LM kernels
+   (``wavefront_matmul``, ``flash_attention``) against their plain
+   versions within their stated tolerances; the smoke serve against the
+   JAX reference's committed run
+   (``src/repro_torch/models/reference_serve.json``), float32 and
+   bfloat16; then granite-moe-3b-a800m at full width and depth in
+   bfloat16 (8 requests x prompt 512, 32 decode steps, ``max_len``
+   1024), its kernel counters zeroed just before and read just after,
+   its logits checked finite; then each LM kernel held against its plain
+   version and timed (with its bound and a library call) at the serve's
+   exact prefill and decode shapes.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -354,6 +365,342 @@ def time_kernels(dev, worst: dict, launches: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the LM serving path (granite-moe-3b-a800m, full width)
+# ---------------------------------------------------------------------------
+
+#: the full-width serve: 8 requests x prompt 512, 32 greedy decode steps
+SERVE = dict(arch="granite-moe-3b-a800m", requests=8, prompt_len=512,
+             max_new=32, max_len=1024, seed=0)
+#: H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet, 700 W)
+PEAK_BF16_S = 989e12
+
+
+def lm_counters():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.wavefront_matmul.ops import wavefront_matmul
+    return {"wavefront_matmul": wavefront_matmul,
+            "flash_attention": flash_attention}
+
+
+def within(got, exp, tol) -> float:
+    """Max abs error; raises if beyond ``atol + rtol * |exp|``."""
+    atol, rtol = tol
+    g, e = got.float(), exp.float()
+    err = (g - e).abs()
+    if not bool((err <= atol + rtol * e.abs()).all()):
+        raise AssertionError(f"max abs err {float(err.max())} beyond atol "
+                             f"{atol} + rtol {rtol}")
+    return float(err.max())
+
+
+def check_lm_kernels(dev) -> None:
+    """Both LM kernels against their plain versions at the reference
+    tests' shapes plus the ragged, grouped and decode cases."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for e, m, k, nn in ((1, 128, 128, 128), (1, 256, 128, 256),
+                            (1, 384, 256, 128), (5, 200, 48, 64),
+                            (40, 2, 96, 32)):
+            a = torch.randn((e, m, k), generator=g, device=dev).to(dt)
+            b = (torch.randn((e, k, nn), generator=g, device=dev)
+                 / k ** 0.5).to(dt)
+            act = torch.randint(0, 2, (e, -(-m // 128)), generator=g,
+                                device=dev, dtype=torch.int32)
+            got = mops.wavefront_matmul(a, b, act)
+            try:
+                within(got, mref.wavefront_matmul_ref(a, b, act),
+                       mops.TOLERANCE[dt])
+            except AssertionError as err:
+                raise AssertionError(f"wavefront_matmul {dt} {e}x{m}x{k}x"
+                                     f"{nn}: {err}") from None
+            n += 1
+        zero = mops.wavefront_matmul(a, b, torch.zeros_like(act))
+        if torch.count_nonzero(zero):
+            raise AssertionError("wavefront_matmul: inactive tiles not zero")
+        for b_, h, kv, sq, sk, d, causal in (
+                (2, 2, 2, 128, 128, 64, True), (2, 2, 2, 128, 512, 64, False),
+                (2, 6, 2, 37, 37, 12, True), (2, 4, 2, 100, 300, 128, True),
+                (3, 24, 8, 1, 1024, 64, False)):
+            q = torch.randn((b_, h, sq, d), generator=g, device=dev).to(dt)
+            kk = torch.randn((b_, kv, sk, d), generator=g, device=dev).to(dt)
+            vv = torch.randn((b_, kv, sk, d), generator=g, device=dev).to(dt)
+            lens = torch.randint(1, sk + 1, (b_,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            got = fops.flash_attention(q, kk, vv, lens, causal)
+            try:
+                within(got, fref.mha_ref(q, kk, vv, lens, causal).to(dt),
+                       fops.TOLERANCE[dt])
+            except AssertionError as err:
+                raise AssertionError(f"flash_attention {dt} {q.shape} "
+                                     f"{kk.shape}: {err}") from None
+            n += 1
+    torch.cuda.synchronize()
+    log(f"[lm-kernels] wavefront_matmul and flash_attention: {n} cases "
+        "within tolerance of their plain versions (ragged, batched, GQA, "
+        "decode rows; float32 and bfloat16; inactive tiles zero)")
+
+
+def serve_reference(dev) -> dict:
+    """The smoke serve on the card against the JAX reference's file."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    out = serve.hold_against_reference(dev)
+    for name, r in out.items():
+        log(f"[serve-ref] {name}: logits within {serve.TOLERANCE[name]} of "
+            f"the reference (max abs err {r['max_abs_err']:.3g}); "
+            f"{r['tokens_checked']} of {r['tokens']} greedy tokens checked, "
+            f"all equal")
+    log(f"[serve-ref] {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def serve_full(dev, gpu: str) -> dict:
+    """Phase 5's main path: ``repro_torch.launch.serve`` at the config's
+    full width and depth, bf16, weights drawn on the card from a seed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = configs.get(SERVE["arch"])
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg, SERVE["seed"], dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.from_numpy(serve.make_prompt(
+        cfg, SERVE["seed"], SERVE["requests"], SERVE["prompt_len"])).to(dev)
+    serve.generate(cfg, model, prompt, 2, SERVE["max_len"])   # warm-up
+    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters, held at "
+        f"{cfg.dtype} only (drawn at {cfg.param_dtype}), built and warmed "
+        f"in {time.perf_counter() - t0:.1f}s")
+    counters = lm_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = serve.generate(cfg, model, prompt, SERVE["max_new"],
+                       SERVE["max_len"])
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if r["tokens"].shape != (SERVE["requests"], SERVE["max_new"] + 1) \
+            or r["vocab"] != cfg.vocab:
+        raise AssertionError(f"serve output has shape {r['tokens'].shape}")
+    if not r["finite"]:
+        raise AssertionError("serve logits are not all finite")
+    if not ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab)).all():
+        raise AssertionError("serve tokens out of the vocabulary")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{k} was never launched on the serve path")
+    ms_step = 1e3 * r["decode_s"] / SERVE["max_new"]
+    tps = r["useful"] / r["decode_s"]
+    log(f"[serve] prefill {SERVE['requests']} x {SERVE['prompt_len']}: "
+        f"{r['prefill_s']:.4f}s; decode {SERVE['max_new']} steps: "
+        f"{ms_step:.3f} ms/step, {r['useful']} useful tokens, "
+        f"{tps:.1f} useful tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+        f"logits finite; launches {launches} ({gpu})")
+    log(f"[serve] sample continuation: {r['tokens'][0, :8].tolist()}")
+    profile_decode(cfg, model, prompt, ms_step)
+    return {"cfg": cfg, "launches": launches, "ms_step": ms_step,
+            "tokens_s": tps, "prefill_s": r["prefill_s"],
+            "last_lengths": r["last_lengths"]}
+
+
+def profile_decode(cfg, model, prompt, ms_step: float, steps: int = 2):
+    """Device time and the top kernels by device time over a few decode
+    steps of the full-width serve, by ``torch.profiler``; the busy share
+    is given against the profiled wall time and against the unprofiled
+    step time ``ms_step``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    _, cache, lengths = api.prefill(cfg, model, {"tokens": prompt},
+                                    SERVE["max_len"])
+    tok = torch.zeros((prompt.shape[0],), dtype=torch.int32,
+                      device=prompt.device)
+    api.decode(cfg, model, cache, tok, lengths)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, cache, lengths = api.decode(cfg, model, cache, tok, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    # device-side events only: a CPU op also reports its kernels' time
+    kern = [e for e in prof.key_averages() if dev_us(e) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not kern:
+        log("[profile] the profiler showed no device time: not measured")
+        return
+    busy = sum(dev_us(e) for e in kern) / 1e6
+    launches = sum(e.count for e in kern)
+    per_step = 1e3 * busy / steps
+    log(f"[profile] {steps} decode steps: {launches} kernels, device busy "
+        f"{per_step:.3f} ms a step; profiled wall {1e3 * wall / steps:.3f} "
+        f"ms a step ({100 * busy / wall:.1f} % busy); against the "
+        f"unprofiled {ms_step:.3f} ms a step, {100 * per_step / ms_step:.1f}"
+        f" % busy, {100 - 100 * per_step / ms_step:.1f} % idle")
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} "
+            f"{e.key[:90]}")
+
+
+def lm_cases(dev, cfg, last_lengths) -> dict:
+    """Each LM kernel's inputs at the serve's exact shapes and types, by
+    ``(kernel, phase, call)``: the expert GEMMs' up-projections (``w_in``
+    and ``w_gate``, d -> f) and down-projection (``w_out``, f -> d), and
+    attention, in prefill and decode.  Values are random at the model's
+    scales; the decode lengths are the ones the run's last step read."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    b, s, t = SERVE["requests"], SERVE["prompt_len"], SERVE["max_len"]
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    rn = lambda *shape, scale=1.0: (torch.randn(shape, generator=g,
+                                                device=dev) * scale).to(bf)
+    out = {}
+    for phase, n in (("prefill", b * s), ("decode", b)):
+        cap = max(1, int(round(n * cfg.top_k / e)))
+        act = torch.ones((e, -(-cap // 128)), dtype=torch.int32, device=dev)
+        out[("wavefront_matmul", phase, "up")] = (
+            rn(e, cap, d), rn(e, d, f, scale=d ** -0.5), act)
+        out[("wavefront_matmul", phase, "down")] = (
+            rn(e, cap, f), rn(e, f, d, scale=f ** -0.5), act)
+    out[("flash_attention", "prefill", "attention")] = (
+        rn(b, h, s, hd), rn(b, kv, s, hd), rn(b, kv, s, hd),
+        torch.full((b,), s, dtype=torch.int32, device=dev), True)
+    out[("flash_attention", "decode", "attention")] = (
+        rn(b, h, 1, hd), rn(b, kv, t, hd), rn(b, kv, t, hd),
+        torch.from_numpy(last_lengths + 1).to(dev, torch.int32), False)
+    return out
+
+
+def lm_work(name, args) -> tuple:
+    """(bytes, FLOPs) the call must move and do: each input read once,
+    the output written once; the products of active rows, or of the
+    (query, key) pairs that the mask keeps."""
+    if name == "wavefront_matmul":
+        a, b, act = args
+        e, m, k = a.shape
+        n = b.shape[-1]
+        rows = sum(min(128, m - 128 * i) for ex in act.tolist()
+                   for i, on in enumerate(ex) if on)
+        experts = sum(any(ex) for ex in act.tolist())
+        nbytes = 2 * (rows * k + experts * k * n + e * m * n) \
+            + 4 * act.numel()
+        return nbytes, 2 * rows * k * n
+    q, k, v, lens, causal = args
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    pairs = keys = 0
+    for ln in lens.tolist():
+        lim = [min(ln, i + (sk - sq) + 1) if causal else ln
+               for i in range(sq)]
+        pairs += sum(max(0, min(x, sk)) for x in lim)
+        keys += max(0, min(max(lim), sk))         # keys read at all
+    nbytes = 2 * (2 * q.numel() + 2 * kv * keys * d) + 4 * lens.numel()
+    return nbytes, 4 * h * d * pairs
+
+
+def lm_library(name, args):
+    """One PyTorch call that computes the same function (the yardstick;
+    the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    if name == "wavefront_matmul":
+        a, b, _ = args
+        return lambda: torch.bmm(a, b)
+    q, k, v, lens, causal = args
+    if causal:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+    mask = (torch.arange(k.shape[2], device=k.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def lm_kernels_at_serve(dev, full: dict) -> list:
+    """Hold each LM kernel against its plain version at the serve's
+    shapes, then time kernel, plain version and library call there."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    fns = {"wavefront_matmul": (mops.wavefront_matmul,
+                                mref.wavefront_matmul_ref, mops.TOLERANCE),
+           "flash_attention": (fops.flash_attention,
+                               lambda *a: fref.mha_ref(*a).to(a[0].dtype),
+                               fops.TOLERANCE)}
+    cases = lm_cases(dev, full["cfg"], full["last_lengths"])
+    rows = {}
+    for (name, phase, call), args in cases.items():
+        kern, plain, tol = fns[name]
+        counter = lm_counters()[name]
+        before = counter.launches
+        got = kern(*args)
+        exp = plain(*args)
+        torch.cuda.synchronize()
+        try:
+            err = within(got, exp, tol[got.dtype])
+        except AssertionError as e:
+            raise AssertionError(f"{name} {phase} {call}: {e}") from None
+        nbytes, flops = lm_work(name, args)
+        t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+        heavy = phase == "prefill"
+        row = {"phase": phase, "call": call,
+               "shape": [list(a.shape) for a in args
+                         if isinstance(a, torch.Tensor)],
+               "max_abs_err": err,
+               "ms": time_ms(lambda: kern(*args), reps=10 if heavy else 100,
+                             rounds=5),
+               "plain_ms": time_ms(lambda: plain(*args),
+                                   reps=5 if heavy else 20, rounds=3),
+               "library_ms": time_ms(lm_library(name, args),
+                                     reps=20 if heavy else 100, rounds=5),
+               "bound_ms": max(t_b, t_f) * 1e3,
+               "bound_by": "bytes" if t_b >= t_f else "operations"}
+        counter.launches = before          # timing launches are not the run's
+        rows.setdefault(name, []).append(row)
+        log(f"[lm-timing] {name} {phase} {call} {row['shape']}: kernel "
+            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, library "
+            f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}); within {tol[got.dtype]} of the plain "
+            f"version (max abs err {err:.3g})")
+    src = {"wavefront_matmul": "src/repro/kernels/wavefront_matmul/"
+                               "kernel.py:52",
+           "flash_attention": "src/repro/kernels/flash_attention/kernel.py:87"}
+    out = []
+    for name in ("wavefront_matmul", "flash_attention"):
+        # the headline numbers are the first prefill call's; every call
+        # the serve makes is in "cases"
+        first = rows[name][0]
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                    "replaces": src[name],
+                    "launches": full["launches"][name],
+                    "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+                    **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "shape", "phase", "call")},
+                    "cases": rows[name]})
+    return out
+
+
+def gpu_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     try:
         import torch
@@ -369,29 +716,37 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    from repro_torch.launch import serve
+    serve.float32_matmuls()
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    log(f"[device] {name}, torch {torch.__version__}, CUDA "
+    device_name = torch.cuda.get_device_name(0)
+    log(f"[device] {device_name}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, count {torch.cuda.device_count()}")
 
+    gpu = gpu_line()
     t0 = time.perf_counter()
     build.build_all()
-    log(f"[build] nvcc sm_90a, both kernels built and loaded in "
+    log(f"[build] nvcc sm_90a, {len(build.LOGS) or 'all'} kernels built "
+        f"(one nvcc each, in parallel) and loaded in "
         f"{time.perf_counter() - t0:.1f}s ({build.BUILD_DIR})")
+    for kernel, text in sorted(build.LOGS.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {kernel}: {line.strip()}")
 
     worst = check_kernels(dev)
     res = run_suite(dev)
     kernels = time_kernels(dev, worst, res["launches"])
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    check_lm_kernels(dev)
+    serve_reference(dev)
+    full = serve_full(dev, gpu)
+    kernels += lm_kernels_at_serve(dev, full)
+
+    print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,0 +1,12 @@
+"""yi-9b [dense]: 48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000
+[arXiv:2403.04652; hf] — llama-arch GQA."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b", family="dense",
+    n_layers=48, d_model=4096, n_heads=32, kv_heads=4, d_ff=11008,
+    vocab=64000,
+)
+
+SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, kv_heads=2,
+                       d_ff=160, vocab=256, remat=False)

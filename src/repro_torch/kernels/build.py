@@ -7,8 +7,12 @@ module, and this package's CPU path needs no compiler).  The libraries
 have a plain C interface: pointers and the stream go in as
 ``c_void_p``, and each entry point returns ``cudaGetLastError()``.
 
-Flags: ``sm_90a`` (Hopper), ``-ftz=true`` to flush subnormals as
-XLA:CPU does, ``-fmad=false`` so that no multiply-add is contracted.
+Flags: ``sm_90a`` (Hopper) for every kernel.  The eGPU data-path
+kernels, which are bit-exact, add ``-ftz=true`` to flush subnormals as
+XLA:CPU does and ``-fmad=false`` so that no multiply-add is contracted;
+the LM kernels, held to a tolerance, keep nvcc's defaults.  nvcc's
+report (``-Xptxas -v``: registers, shared memory, spills) is kept in
+:data:`LOGS`.
 """
 from __future__ import annotations
 
@@ -23,21 +27,27 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-ftz=true", "-fmad=false", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+EXACT_FLAGS = ("-ftz=true", "-fmad=false")
 
-#: kernel name -> (C entry point, its ctypes argtypes)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel name -> (C entry point, its ctypes argtypes, extra nvcc flags)
 _SIGNATURES = {
     "wavefront_alu": ("egpu_wavefront_alu",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                      + [ctypes.c_int, ctypes.c_void_p]),
+                      [_P] * 5 + [_LL] * 2 + [_I, _P], EXACT_FLAGS),
     "dot_product": ("egpu_dot_product",
-                    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-                    + [ctypes.c_int, ctypes.c_void_p]),
+                    [_P] * 4 + [_LL] * 3 + [_I, _P], EXACT_FLAGS),
+    "wavefront_matmul": ("lm_wavefront_matmul",
+                         [_P] * 4 + [_LL] * 4 + [_I, _P], ()),
+    "flash_attention": ("lm_flash_attention",
+                        [_P] * 5 + [_LL] * 6
+                        + [_I, ctypes.c_float, _I, _P], ()),
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: kernel name -> nvcc's output for the build made in this process
+LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -51,11 +61,15 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + _SIGNATURES[name][2]
+
+
 def _digest(name: str) -> str:
     h = hashlib.blake2b(digest_size=8)
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return h.hexdigest()
 
 
@@ -78,12 +92,13 @@ def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
             if out.exists():
                 continue
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT), tmp, out)
         errors = []
         for n, (p, tmp, out) in procs.items():
             log, _ = p.communicate()
+            LOGS[n] = log.decode()
             if p.returncode != 0:
                 errors.append(f"nvcc failed for {n}.cu:\n{log.decode()}")
             else:
@@ -92,7 +107,7 @@ def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
             raise RuntimeError("\n".join(errors))
         for n in todo:
             lib = ctypes.CDLL(str(_target(n)))
-            sym, argtypes = _SIGNATURES[n]
+            sym, argtypes, _ = _SIGNATURES[n]
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

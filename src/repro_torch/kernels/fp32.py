@@ -22,6 +22,8 @@ functions here are their plain versions.
 """
 from __future__ import annotations
 
+import pathlib
+
 import torch
 
 SIGN = -0x80000000                 # int32 0x80000000
@@ -113,14 +115,67 @@ def minimum(a, b):
     return torch.where(is_nan(nx), nx, r)
 
 
+#: the x86 ``vrsqrtps`` estimate over [1, 4), from ``data/rsqrtps_table.c``
+RSQRT_TABLE = pathlib.Path(__file__).resolve().parent / "data" \
+    / "rsqrtps_table.txt"
+RSQRT_MANT_BITS = 10
+_rsqrt_tables: dict = {}
+
+
+def _rsqrt_table(device) -> torch.Tensor:
+    key = str(device)
+    if key not in _rsqrt_tables:
+        words = [int(w, 16) for w in RSQRT_TABLE.read_text().splitlines()
+                 if w and not w.startswith("#")]
+        if len(words) != 2 << RSQRT_MANT_BITS:
+            raise ValueError(f"{RSQRT_TABLE}: {len(words)} entries")
+        _rsqrt_tables[key] = torch.tensor(words, dtype=torch.int32,
+                                          device=device)
+    return _rsqrt_tables[key]
+
+
+def _estimate(a):
+    """``vrsqrtps`` of a positive normal float32: the table entry of the
+    exponent's parity and top mantissa bits, its exponent field lowered by
+    half the input's distance from [1, 4)."""
+    e = (a >> 23) & 0xFF
+    par = (e - 127) & 1
+    idx = (par << RSQRT_MANT_BITS) + ((a & 0x7FFFFF) >> (23 - RSQRT_MANT_BITS))
+    return _rsqrt_table(a.device)[idx] - (((e - 127 - par) // 2) << 23)
+
+
+def _fma_f32(a, b, c):
+    """``fma(a, b, c)`` rounded once to float32, for float32 tensors whose
+    product is exact in float64: the float64 sum is taken to odd (its two-
+    sum error sets the low bit), so the rounding to float32 is the only
+    one that counts."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
 def rsqrt(a):
-    """``1/sqrt`` of the DAZ'd operand, correctly rounded (float64 then
-    one rounding).  XLA:CPU's ``rsqrt`` is an approximation whose bits
-    this does not reproduce; see ROADMAP.md queue 3."""
-    x = as_f32(daz(a)).double()
-    r = ftz(as_bits((1.0 / torch.sqrt(x)).float()))
-    r = torch.where(is_nan(r), DEFAULT_NAN, r)
-    return torch.where(is_nan(a), quiet(a), r)
+    """XLA:CPU's ``lax.rsqrt``, bit for bit on the CPU the estimate table
+    was made on.  A positive normal input takes the ``vrsqrtps`` estimate
+    ``y`` and two Newton steps, each ``t = x*y; u = fma(y, t, -1);
+    y = fma(-0.5*y, u, y)``; every other class returns the estimate itself,
+    which is ``1/sqrt`` of the DAZ'd operand with x86's NaN rules."""
+    x = as_f32(a)
+    y = as_f32(_estimate(a))
+    for _ in range(2):
+        t = (x.double() * y.double()).float()
+        u = _fma_f32(y, t, torch.full_like(y, -1.0))
+        y = _fma_f32(y * -0.5, u, y)
+    normal = (a > 0) & ((a & EXP_MASK) != 0) & ((a & EXP_MASK) != EXP_MASK)
+    special = ftz(as_bits((1.0 / torch.sqrt(as_f32(daz(a)).double())).float()))
+    special = torch.where(is_nan(special), DEFAULT_NAN, special)
+    special = torch.where(is_nan(a), quiet(a), special)
+    return torch.where(normal, as_bits(y), special)
 
 
 def compare(a, b, op: str):

@@ -113,3 +113,120 @@ def test_step_loop_never_syncs(dev, monkeypatch):
     fleet_run([b.image for b in jobs.values()],
               init_kw=[dict(shared_init=b.shared_init, tdx_dim=b.tdx_dim)
                        for b in jobs.values()], device=dev)
+
+
+# --- the LM kernels and the serving path --------------------------------------
+
+def _within(got, exp, tol):
+    atol, rtol = tol
+    g, e = got.float(), exp.float()
+    return bool(((g - e).abs() <= atol + rtol * e.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n", [(1, 128, 128, 128), (1, 384, 256, 128),
+                                     (5, 200, 48, 64), (40, 2, 96, 32),
+                                     (3, 819, 160, 96),
+                                     # the granite serve's expert GEMMs:
+                                     # up and down, prefill and decode
+                                     (40, 819, 1536, 512),
+                                     (40, 819, 512, 1536),
+                                     (40, 2, 1536, 512), (40, 2, 512, 1536)])
+def test_wavefront_matmul_kernel_equals_plain(dev, dtype, e, m, k, n):
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randn((e, m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((e, k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    act = torch.randint(0, 2, (e, -(-m // 128)), generator=g, device=dev,
+                        dtype=torch.int32)
+    act[0, 0] = 1
+    if e == 1:
+        a, b, act = a[0], b[0], act[0]
+    before = mops.wavefront_matmul.launches
+    got = mops.wavefront_matmul(a, b, act)
+    assert mops.wavefront_matmul.launches == before + 1
+    exp = mref.wavefront_matmul_ref(a, b, act)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _within(got, exp, mops.TOLERANCE[dtype])
+    off = ~mref.tile_mask(act, m)
+    assert torch.count_nonzero(got[off]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (2, 2, 2, 128, 256, 64, True), (2, 2, 2, 128, 128, 64, False),
+    (2, 6, 2, 37, 37, 12, True), (3, 24, 8, 1, 1024, 64, False),
+    (2, 4, 2, 100, 300, 128, True), (2, 4, 4, 16, 48, 16, False)])
+def test_flash_attention_kernel_equals_plain(dev, dtype, b, h, kv, sq, sk,
+                                             d, causal):
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, kv, sk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, kv, sk, d), generator=g, device=dev).to(dtype)
+    lens = torch.randint(1, sk + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0] = sk
+    before = fops.flash_attention.launches
+    got = fops.flash_attention(q, k, v, lens, causal)
+    assert fops.flash_attention.launches == before + 1
+    exp = fref.mha_ref(q, k, v, lens, causal).to(dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _within(got, exp, fops.TOLERANCE[dtype])
+    # poisoned keys past each request's length change nothing
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, :, n:] = 1e4
+        v2[i, :, n:] = -1e4
+    assert torch.equal(fops.flash_attention(q, k2, v2, lens, causal), got)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    q = torch.zeros((1, 1, 4, 160), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        mops.wavefront_matmul(torch.zeros((4, 8), device=dev),
+                              torch.zeros((8, 2), device=dev),
+                              torch.ones(1, device="cpu"))
+
+
+@pytest.mark.parametrize("mode", ["expert_choice", "token_dense"])
+def test_moe_and_attention_on_cuda_equal_cpu(dev, mode):
+    """The modules on the card (kernels) against the port's CPU run
+    (plain versions), float32, granite's smoke config."""
+    from repro_torch import configs
+    from repro_torch.models import attention, convert, moe
+    cfg = configs.get_smoke("granite-moe-3b-a800m").replace(
+        dtype=torch.float32)
+    tree = convert.numpy_params(cfg, 0)
+    sub = lambda name: {k: torch.from_numpy(v[0].copy())
+                        for k, v in tree["blocks"][name].items()}
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model))
+                         .astype(np.float32))
+    pos = torch.arange(16).expand(2, 16)
+    mp, ap = sub("moe"), sub("attn")
+    to = lambda p: {k: v.to(dev) for k, v in p.items()}
+    exp = moe.moe_apply(cfg, mp, x, mode=mode)
+    got = moe.moe_apply(cfg, to(mp), x.to(dev), mode=mode)
+    assert torch.allclose(got.cpu(), exp, atol=2e-5)
+    exp = attention.attend(cfg, ap, x, pos)
+    got = attention.attend(cfg, to(ap), x.to(dev), pos.to(dev))
+    assert torch.allclose(got.cpu(), exp, atol=2e-5)
+
+
+def test_smoke_serve_on_cuda_holds_against_reference_file(dev):
+    """The JAX reference's committed smoke serve, float32 and bfloat16."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    from repro_torch.launch import serve
+    f0, m0 = fops.flash_attention.launches, mops.wavefront_matmul.launches
+    out = serve.hold_against_reference(dev)
+    assert out["float32"]["tokens_checked"] == out["float32"]["tokens"]
+    assert fops.flash_attention.launches > f0
+    assert mops.wavefront_matmul.launches > m0
