@@ -24,16 +24,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    for the same function, at the main path's shapes (CUDA events,
    warm-up, median);
 5. the LM serving path (``repro_torch.launch.serve``): the LM kernels
-   (``wavefront_matmul``, ``flash_attention``) against their plain
-   versions within their stated tolerances; the smoke serve against the
-   JAX reference's committed run
+   (``wavefront_matmul``, ``flash_attention``), every route of each
+   (``ops.route``: ``wgmma``, ``small_m``, ``split``, ``simt``), against
+   their plain
+   versions within their stated tolerances, inactive tiles zero and
+   poisoned tails changing no bit; the smoke serve against the JAX
+   reference's committed run
    (``src/repro_torch/models/reference_serve.json``), float32 and
    bfloat16; then granite-moe-3b-a800m at full width and depth in
    bfloat16 (8 requests x prompt 512, 32 decode steps, ``max_len``
-   1024), its kernel counters zeroed just before and read just after,
-   its logits checked finite; then each LM kernel held against its plain
-   version and timed (with its bound and a library call) at the serve's
-   exact prefill and decode shapes.
+   1024), its kernel counters (in all and by route) zeroed just before
+   and read just after, every prefill GEMM and attention on ``wgmma``,
+   every decode GEMM on ``small_m`` and every decode attention on
+   ``split``, its logits checked finite; then
+   each LM kernel held against its plain version and timed at the
+   serve's six exact shapes: the routed kernel, the previous design (the
+   ``simt`` kernel on the same bf16 inputs), the plain version and a
+   library call, with the bound; kernels and library calls by device
+   time (launches captured in a CUDA graph), the plain version eagerly.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -301,6 +309,39 @@ def time_ms(fn, reps=200, rounds=5) -> float:
     return statistics.median(out)
 
 
+def graph_ms(fn, reps=40, rounds=5) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    the replay timed by CUDA events, the median over ``rounds``.  The
+    host's issue of each launch (the wrapper's Python) is not in it, so
+    it is the time the card spends, which eager timing of a short kernel
+    does not show."""
+    import torch
+    for _ in range(3):
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1) / reps)
+    del graph
+    return statistics.median(out)
+
+
 def time_kernels(dev, worst: dict, launches: dict) -> list:
     import torch
     from repro_torch.kernels.dot_product import ops as dops, ref as dref
@@ -394,55 +435,88 @@ def within(got, exp, tol) -> float:
     return float(err.max())
 
 
+def route_counts() -> dict:
+    """Each LM kernel's launches by route, as a copy."""
+    return {k: dict(f.by_route) for k, f in lm_counters().items()}
+
+
 def check_lm_kernels(dev) -> None:
-    """Both LM kernels against their plain versions at the reference
-    tests' shapes plus the ragged, grouped and decode cases."""
+    """Both LM kernels, every route of each, against their plain versions
+    at the reference tests' shapes plus the ragged, grouped, small-M and
+    decode cases; the previous design (``simt``) on bf16 too."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
     g = torch.Generator(device=dev).manual_seed(3)
+    before = route_counts()
     n = 0
     for dt in (torch.float32, torch.bfloat16):
+        # routes, bf16: wgmma except the small-M cases (small_m) and K =
+        # 100 (rows of 200 bytes, which TMA cannot read: simt); float32:
+        # small_m at M <= 16, simt above
         for e, m, k, nn in ((1, 128, 128, 128), (1, 256, 128, 256),
                             (1, 384, 256, 128), (5, 200, 48, 64),
-                            (40, 2, 96, 32)):
+                            (3, 819, 160, 96), (40, 2, 96, 32),
+                            (40, 16, 96, 32), (7, 1, 64, 24),
+                            (5, 200, 100, 64)):
             a = torch.randn((e, m, k), generator=g, device=dev).to(dt)
             b = (torch.randn((e, k, nn), generator=g, device=dev)
                  / k ** 0.5).to(dt)
             act = torch.randint(0, 2, (e, -(-m // 128)), generator=g,
                                 device=dev, dtype=torch.int32)
-            got = mops.wavefront_matmul(a, b, act)
-            try:
-                within(got, mref.wavefront_matmul_ref(a, b, act),
-                       mops.TOLERANCE[dt])
-            except AssertionError as err:
-                raise AssertionError(f"wavefront_matmul {dt} {e}x{m}x{k}x"
-                                     f"{nn}: {err}") from None
-            n += 1
-        zero = mops.wavefront_matmul(a, b, torch.zeros_like(act))
-        if torch.count_nonzero(zero):
-            raise AssertionError("wavefront_matmul: inactive tiles not zero")
+            act[0, 0] = 1
+            exp = mref.wavefront_matmul_ref(a, b, act)
+            off = ~mref.tile_mask(act, m)
+            routes = [mops.route(a, b)] + (["simt"] if dt == torch.bfloat16
+                                           else [])
+            for r in routes:
+                got = mops.run_route(r, a, b, act)
+                try:
+                    within(got, exp, mops.TOLERANCE[dt])
+                    if torch.count_nonzero(got[off]):
+                        raise AssertionError("inactive tiles not zero")
+                except AssertionError as err:
+                    raise AssertionError(f"wavefront_matmul {r} {dt} {e}x{m}"
+                                         f"x{k}x{nn}: {err}") from None
+                n += 1
         for b_, h, kv, sq, sk, d, causal in (
                 (2, 2, 2, 128, 128, 64, True), (2, 2, 2, 128, 512, 64, False),
                 (2, 6, 2, 37, 37, 12, True), (2, 4, 2, 100, 300, 128, True),
-                (3, 24, 8, 1, 1024, 64, False)):
+                (2, 6, 2, 200, 200, 64, True), (3, 24, 8, 1, 1024, 64, False)):
             q = torch.randn((b_, h, sq, d), generator=g, device=dev).to(dt)
             kk = torch.randn((b_, kv, sk, d), generator=g, device=dev).to(dt)
             vv = torch.randn((b_, kv, sk, d), generator=g, device=dev).to(dt)
             lens = torch.randint(1, sk + 1, (b_,), generator=g, device=dev,
                                  dtype=torch.int32)
-            got = fops.flash_attention(q, kk, vv, lens, causal)
-            try:
-                within(got, fref.mha_ref(q, kk, vv, lens, causal).to(dt),
-                       fops.TOLERANCE[dt])
-            except AssertionError as err:
-                raise AssertionError(f"flash_attention {dt} {q.shape} "
-                                     f"{kk.shape}: {err}") from None
-            n += 1
+            exp = fref.mha_ref(q, kk, vv, lens, causal).to(dt)
+            k2, v2 = kk.clone(), vv.clone()       # poisoned past each length
+            for i, ln in enumerate(lens.tolist()):
+                k2[i, :, ln:] = 1e4
+                v2[i, :, ln:] = -1e4
+            r = fops.route(q, kk, vv)
+            for rr in [r] + (["simt"] if r != "simt" else []):
+                got = fops.run_route(rr, q, kk, vv, lens, causal)
+                try:
+                    within(got, exp, fops.TOLERANCE[dt])
+                    if not torch.equal(
+                            fops.run_route(rr, q, k2, v2, lens, causal), got):
+                        raise AssertionError("poisoned keys changed a bit")
+                except AssertionError as err:
+                    raise AssertionError(f"flash_attention {rr} {dt} "
+                                         f"{q.shape} {kk.shape}: {err}"
+                                         ) from None
+                n += 1
     torch.cuda.synchronize()
+    moved = {k: {r: c - before[k][r] for r, c in v.items()}
+             for k, v in route_counts().items()}
+    for k, v in moved.items():
+        for r, c in v.items():
+            if c <= 0:
+                raise AssertionError(f"{k} route {r} was never checked")
     log(f"[lm-kernels] wavefront_matmul and flash_attention: {n} cases "
         "within tolerance of their plain versions (ragged, batched, GQA, "
-        "decode rows; float32 and bfloat16; inactive tiles zero)")
+        "small-M and decode rows; float32 and bfloat16; inactive tiles "
+        f"zero; poisoned tails change no bit); launches by route {moved}")
 
 
 def serve_reference(dev) -> dict:
@@ -479,10 +553,12 @@ def serve_full(dev, gpu: str) -> dict:
     counters = lm_counters()
     for f in counters.values():
         f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
     torch.cuda.reset_peak_memory_stats(dev)
     r = serve.generate(cfg, model, prompt, SERVE["max_new"],
                        SERVE["max_len"])
     launches = {k: f.launches for k, f in counters.items()}
+    routes = route_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     if r["tokens"].shape != (SERVE["requests"], SERVE["max_new"] + 1) \
             or r["vocab"] != cfg.vocab:
@@ -494,16 +570,27 @@ def serve_full(dev, gpu: str) -> dict:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} was never launched on the serve path")
+    # prefill: 3 expert GEMMs and 1 attention a layer, all on the tensor
+    # cores; each decode step: the same on small_m and split
+    layers, steps = cfg.n_layers, SERVE["max_new"]
+    want = {"wavefront_matmul": {"wgmma": 3 * layers,
+                                 "small_m": 3 * layers * steps, "simt": 0},
+            "flash_attention": {"wgmma": layers, "split": layers * steps,
+                                "simt": 0}}
+    if routes != want:
+        raise AssertionError(f"the serve's launches by route {routes}, "
+                             f"expected {want}")
     ms_step = 1e3 * r["decode_s"] / SERVE["max_new"]
     tps = r["useful"] / r["decode_s"]
     log(f"[serve] prefill {SERVE['requests']} x {SERVE['prompt_len']}: "
         f"{r['prefill_s']:.4f}s; decode {SERVE['max_new']} steps: "
         f"{ms_step:.3f} ms/step, {r['useful']} useful tokens, "
         f"{tps:.1f} useful tokens/s; peak memory {peak / 2**30:.2f} GiB; "
-        f"logits finite; launches {launches} ({gpu})")
+        f"logits finite; launches {launches}, by route {routes} ({gpu})")
     log(f"[serve] sample continuation: {r['tokens'][0, :8].tolist()}")
     profile_decode(cfg, model, prompt, ms_step)
-    return {"cfg": cfg, "launches": launches, "ms_step": ms_step,
+    return {"cfg": cfg, "launches": launches, "routes": routes,
+            "ms_step": ms_step,
             "tokens_s": tps, "prefill_s": r["prefill_s"],
             "last_lengths": r["last_lengths"]}
 
@@ -628,50 +715,72 @@ def lm_library(name, args):
 
 def lm_kernels_at_serve(dev, full: dict) -> list:
     """Hold each LM kernel against its plain version at the serve's
-    shapes, then time kernel, plain version and library call there."""
+    shapes, then time there, in turns: the routed kernel, the previous
+    design (the ``simt`` kernel on the same inputs), the plain version
+    and a library call."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
     fns = {"wavefront_matmul": (mops.wavefront_matmul,
-                                mref.wavefront_matmul_ref, mops.TOLERANCE),
+                                mref.wavefront_matmul_ref, mops.TOLERANCE,
+                                lambda *a: mops.run_route("simt", *a),
+                                lambda a, b, _: mops.route(a, b)),
            "flash_attention": (fops.flash_attention,
                                lambda *a: fref.mha_ref(*a).to(a[0].dtype),
-                               fops.TOLERANCE)}
+                               fops.TOLERANCE,
+                               lambda *a: fops.run_route("simt", *a),
+                               lambda q, k, v, *_: fops.route(q, k, v))}
     cases = lm_cases(dev, full["cfg"], full["last_lengths"])
     rows = {}
     for (name, phase, call), args in cases.items():
-        kern, plain, tol = fns[name]
+        kern, plain, tol, prev, route = fns[name]
         counter = lm_counters()[name]
-        before = counter.launches
+        before = (counter.launches, dict(counter.by_route))
         got = kern(*args)
+        old = prev(*args)
         exp = plain(*args)
         torch.cuda.synchronize()
         try:
             err = within(got, exp, tol[got.dtype])
+            prev_err = within(old, exp, tol[got.dtype])
         except AssertionError as e:
             raise AssertionError(f"{name} {phase} {call}: {e}") from None
         nbytes, flops = lm_work(name, args)
         t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
         heavy = phase == "prefill"
-        row = {"phase": phase, "call": call,
+        # in turns: routed kernel, previous design, library, plain, then
+        # the routed kernel and the previous design again (the median of
+        # both rounds); device time by CUDA graph, the plain version eager
+        lib = lm_library(name, args)
+        ms, prev_ms = [graph_ms(lambda: kern(*args))], \
+            [graph_ms(lambda: prev(*args), reps=10 if heavy else 40)]
+        library_ms = graph_ms(lib)
+        plain_ms = time_ms(lambda: plain(*args), reps=5 if heavy else 20,
+                           rounds=3)
+        prev_ms.append(graph_ms(lambda: prev(*args),
+                                reps=10 if heavy else 40))
+        ms.append(graph_ms(lambda: kern(*args)))
+        row = {"phase": phase, "call": call, "route": route(*args),
                "shape": [list(a.shape) for a in args
                          if isinstance(a, torch.Tensor)],
-               "max_abs_err": err,
-               "ms": time_ms(lambda: kern(*args), reps=10 if heavy else 100,
-                             rounds=5),
-               "plain_ms": time_ms(lambda: plain(*args),
-                                   reps=5 if heavy else 20, rounds=3),
-               "library_ms": time_ms(lm_library(name, args),
-                                     reps=20 if heavy else 100, rounds=5),
+               "max_abs_err": err, "prev_max_abs_err": prev_err,
+               "ms": statistics.median(ms),
+               "prev_ms": statistics.median(prev_ms),
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "eager_ms": time_ms(lambda: kern(*args),
+                                   reps=40 if heavy else 200, rounds=5),
                "bound_ms": max(t_b, t_f) * 1e3,
                "bound_by": "bytes" if t_b >= t_f else "operations"}
-        counter.launches = before          # timing launches are not the run's
+        # timing launches are not the run's
+        counter.launches, counter.by_route = before
         rows.setdefault(name, []).append(row)
-        log(f"[lm-timing] {name} {phase} {call} {row['shape']}: kernel "
-            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, library "
+        log(f"[lm-timing] {name} {phase} {call} {row['shape']}: {row['route']}"
+            f" {row['ms']:.5f} ms (issued eagerly {row['eager_ms']:.5f} ms), "
+            f"previous design (simt) {row['prev_ms']:.5f}"
+            f" ms, plain {row['plain_ms']:.5f} ms, library "
             f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
             f"({row['bound_by']}); within {tol[got.dtype]} of the plain "
-            f"version (max abs err {err:.3g})")
+            f"version (max abs err {err:.3g}; simt {prev_err:.3g})")
     src = {"wavefront_matmul": "src/repro/kernels/wavefront_matmul/"
                                "kernel.py:52",
            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:87"}
@@ -684,11 +793,36 @@ def lm_kernels_at_serve(dev, full: dict) -> list:
                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                     "replaces": src[name],
                     "launches": full["launches"][name],
+                    "routes": full["routes"][name],
                     "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
                     **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms",
-                                             "shape", "phase", "call")},
+                                             "prev_ms", "shape", "phase",
+                                             "call")},
+                    "kernel_route": first["route"],
                     "cases": rows[name]})
+    return out
+
+
+def ptxas_report(logs: dict) -> list:
+    """``(kernel, function, registers, spills, static shared bytes)`` for
+    each function nvcc's ``-Xptxas -v`` reported."""
+    import re
+    out = []
+    for kernel, text in sorted(logs.items()):
+        fn = spill = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"\d+([A-Za-z_]+_kernel)(I\w*?E)?E?", line)
+                fn = (m.group(1) + (m.group(2) or "")) if m else line.strip()
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line and fn:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.append((kernel, fn, int(regs), spill,
+                            int(smem.group(1)) if smem else 0))
+                fn = None
     return out
 
 
@@ -729,10 +863,9 @@ def main() -> int:
     log(f"[build] nvcc sm_90a, {len(build.LOGS) or 'all'} kernels built "
         f"(one nvcc each, in parallel) and loaded in "
         f"{time.perf_counter() - t0:.1f}s ({build.BUILD_DIR})")
-    for kernel, text in sorted(build.LOGS.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {kernel}: {line.strip()}")
+    for kernel, fn, regs, spill, smem in ptxas_report(build.LOGS):
+        log(f"[ptxas] {kernel}: {fn}: {regs} registers, {spill}, static "
+            f"shared memory {smem} bytes")
 
     worst = check_kernels(dev)
     res = run_suite(dev)

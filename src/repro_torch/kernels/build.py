@@ -5,13 +5,19 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into
 together, at first use (never at import: the CPU tests import every
 module, and this package's CPU path needs no compiler).  The libraries
 have a plain C interface: pointers and the stream go in as
-``c_void_p``, and each entry point returns ``cudaGetLastError()``.
+``c_void_p``, and each entry point returns ``cudaGetLastError()``.  A
+library may hold several entry points: the LM kernels have one for each
+route (``ops.route``).
 
 Flags: ``sm_90a`` (Hopper) for every kernel.  The eGPU data-path
 kernels, which are bit-exact, add ``-ftz=true`` to flush subnormals as
 XLA:CPU does and ``-fmad=false`` so that no multiply-add is contracted;
-the LM kernels, held to a tolerance, keep nvcc's defaults.  nvcc's
-report (``-Xptxas -v``: registers, shared memory, spills) is kept in
+the LM kernels, held to a tolerance, keep nvcc's defaults
+(:data:`TMA_FLAGS`, empty): their TMA tensor maps are encoded by
+``cuTensorMapEncodeTiled``, which ``csrc/hopper.cuh`` takes from the
+driver through ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``
+and the libraries load where the CUDA runtime does.  nvcc's report
+(``-Xptxas -v``: registers, shared memory, spills) is kept in
 :data:`LOGS`.
 """
 from __future__ import annotations
@@ -31,18 +37,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT_FLAGS = ("-ftz=true", "-fmad=false")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: kernel name -> (C entry point, its ctypes argtypes, extra nvcc flags)
+_F = ctypes.c_float
+#: the LM kernels' flags: none beyond NVCC_FLAGS; TMA's encoder comes from
+#: cudaGetDriverEntryPoint at run time, not from linking -lcuda
+TMA_FLAGS = ()
+_GEMM = [_P] * 4 + [_LL] * 4
+_ATTN = [_P] * 5 + [_LL] * 6
+#: kernel name -> ({C entry point: its ctypes argtypes}, extra nvcc flags)
 _SIGNATURES = {
-    "wavefront_alu": ("egpu_wavefront_alu",
-                      [_P] * 5 + [_LL] * 2 + [_I, _P], EXACT_FLAGS),
-    "dot_product": ("egpu_dot_product",
-                    [_P] * 4 + [_LL] * 3 + [_I, _P], EXACT_FLAGS),
-    "wavefront_matmul": ("lm_wavefront_matmul",
-                         [_P] * 4 + [_LL] * 4 + [_I, _P], ()),
-    "flash_attention": ("lm_flash_attention",
-                        [_P] * 5 + [_LL] * 6
-                        + [_I, ctypes.c_float, _I, _P], ()),
+    "wavefront_alu": ({"egpu_wavefront_alu": [_P] * 5 + [_LL] * 2 + [_I, _P]},
+                      EXACT_FLAGS),
+    "dot_product": ({"egpu_dot_product": [_P] * 4 + [_LL] * 3 + [_I, _P]},
+                    EXACT_FLAGS),
+    "wavefront_matmul": ({"lm_wavefront_matmul": _GEMM + [_I, _P],
+                          "lm_wavefront_matmul_small_m": _GEMM + [_I, _P],
+                          "lm_wavefront_matmul_wgmma": _GEMM + [_P]},
+                         TMA_FLAGS),
+    "flash_attention": ({"lm_flash_attention":
+                             _ATTN + [_I, _F, _I, _I, _P, _P, _P],
+                         "lm_flash_attention_wgmma": _ATTN + [_I, _F, _P]},
+                        TMA_FLAGS),
 }
+
+
+def tma_legal(*ts) -> bool:
+    """Whether TMA can read each tensor as it is: contiguous, its base on
+    16 bytes and its rows a multiple of 16 bytes (the LM kernels' routing
+    rules use it)."""
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               and t.shape[-1] * t.element_size() % 16 == 0 for t in ts)
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -62,7 +86,7 @@ def _nvcc() -> str:
 
 
 def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + _SIGNATURES[name][2]
+    return NVCC_FLAGS + _SIGNATURES[name][1]
 
 
 def _digest(name: str) -> str:
@@ -107,18 +131,19 @@ def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
             raise RuntimeError("\n".join(errors))
         for n in todo:
             lib = ctypes.CDLL(str(_target(n)))
-            sym, argtypes, _ = _SIGNATURES[n]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for sym, argtypes in _SIGNATURES[n][0].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[n] = lib
         return dict(_libs)
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name``, building it if needed."""
+def entry(name: str, sym: str | None = None):
+    """The C entry point ``sym`` of kernel ``name`` (default: its first),
+    building the library if needed."""
     lib = _libs.get(name) or build_all((name,))[name]
-    return getattr(lib, _SIGNATURES[name][0])
+    return getattr(lib, sym or next(iter(_SIGNATURES[name][0])))
 
 
 def check(err: int, name: str) -> None:

@@ -7,18 +7,43 @@
 // (one matrix per expert) runs every expert of a layer in one launch;
 // M, N and K may be ragged (the edge tiles are masked, nothing is padded).
 //
-// Bound on an H100 SXM: at the MoE's shapes (M = capacity, K and N =
-// d_model or expert d_ff, bf16) the FLOPs over the bf16 tensor-core peak
-// and the bytes over HBM bandwidth are about equal.  This first kernel
-// runs on the CUDA cores in float32 (no wgmma, no TMA), so its own limit
-// is the CUDA cores' FMA rate: a 128 x 64 block tile, a 16-deep K slab
-// staged through shared memory (bf16 upcast on load), 8 x 4 outputs a
-// thread.  Tensor cores are a later change.
+// Three kernels, one C entry point each; ops.route picks one by an
+// explicit rule (never a fallback):
+//
+// - "wgmma" (bf16, M > 16, TMA-legal operands).  Bound at the MoE's
+//   prefill shapes by the tensor cores and HBM about equally.  A block
+//   owns one 128-row activity tile x 128 columns of one expert: an
+//   inactive tile stores zeros and loads nothing.  One producer warp keeps
+//   TMA loads of A (128 x 64, K-major) and B (64 x 128, N contiguous, so
+//   MN-major: wgmma's transpose bit) in flight through a ring of 3 stages
+//   of shared memory, each on its own pair of mbarriers (99 KB, so two
+//   blocks share an SM and one's epilogue overlaps the other's loads:
+//   faster than 4 stages and one block at K = 512); two consumer
+//   warpgroups each run wgmma.m64n128k16 on 64 of the rows into float32
+//   registers and round to bf16 in the epilogue.  The tensor maps are 3-D
+//   over (expert, rows, cols), so TMA zero-fills the ragged edges of M and
+//   K inside each expert.
+// - "small_m" (M <= 16 rows per expert, float32 or bf16: decode).  Bound
+//   by the bytes of B, which is read exactly once: a block owns one
+//   (expert, 64-column slice); each thread streams 16-byte vectors of its
+//   B rows through a private ring of cp.async stages and keeps float32
+//   sums for its columns over all M rows (rounded up to 1, 2, 4, 8 or 16),
+//   with A's rows in shared memory; the partial sums meet in a fixed order.
+// - "simt" (the first design): the CUDA cores in float32, a
+//   128 x 64 tile, a 16-deep K slab staged through shared memory.  It takes
+//   float32 at M > 16 (TF32 tensor cores would break float32's tolerance)
+//   and any operand TMA cannot take.
+#include "hopper.cuh"
+#include "hopper_wgmma.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ============================================================ route "simt"
+
 
 constexpr int kTileM = 128;   // the activity tile, as on the TPU
 constexpr int kTileN = 64;
@@ -105,6 +130,297 @@ wavefront_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+constexpr int kSmemLimit = 227 * 1024;   // a block's most, opted in
+
+// ========================================================= route "small_m"
+
+constexpr int kSmThreads = 256;
+constexpr int kSmCols = 64;      // columns a block owns
+constexpr int kSmStages = 8;     // 16-byte copies in flight per thread
+constexpr int kSmWarps = kSmThreads / 32;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int n = 4;
+  __device__ static void unpack(const uint4& u, float (&x)[4]) {
+    x[0] = __uint_as_float(u.x); x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+  __device__ static void unpack(const uint4& u, float (&x)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // bf16 -> f32 is exact: the high half
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
+
+inline size_t small_m_smem(int mt, long long k, size_t elem) {
+  const size_t a = ((size_t)mt * k * elem + 15) / 16 * 16;
+  return a + (size_t)kSmStages * kSmThreads * 16 +
+         (size_t)kSmWarps * mt * kSmCols * sizeof(float);
+}
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(kSmThreads)
+small_m_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const int32_t* __restrict__ active, T* __restrict__ c,
+                      int m, int n, int k) {
+  constexpr int kVec = Vec<T>::n;              // columns a 16-byte vector holds
+  constexpr int kTpr = kSmCols / kVec;         // threads on one B row: 16 or 8
+  constexpr int kRp = kSmThreads / kTpr;       // B rows a pass covers
+  const int e = blockIdx.y, n0 = blockIdx.x * kSmCols;
+  const int tid = threadIdx.x, cg = tid % kTpr, rg = tid / kTpr;
+  const int col = n0 + cg * kVec;
+  a += (int64_t)e * m * k;
+  b += (int64_t)e * k * n;
+  c += (int64_t)e * m * n;
+
+  if (active[e] == 0) {                        // M <= 128: one activity tile
+    for (int i = tid; i < m * kSmCols; i += kSmThreads) {
+      const int r = i / kSmCols, cc = n0 + i % kSmCols;
+      if (cc < n) c[(int64_t)r * n + cc] = from_f32<T>(0.0f);
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) uint8_t sm_raw[];
+  T* as = reinterpret_cast<T*>(sm_raw);                          // MT x k
+  uint4* ring = reinterpret_cast<uint4*>(
+      sm_raw + ((size_t)MT * k * sizeof(T) + 15) / 16 * 16);      // stages x threads
+  float* red = reinterpret_cast<float*>(ring + kSmStages * kSmThreads);
+
+  for (int i = tid; i < MT * k; i += kSmThreads)
+    as[i] = i < m * k ? a[i] : from_f32<T>(0.0f);
+
+  const bool col_ok = col < n;
+  const int passes = (k + kRp - 1) / kRp;
+  auto issue = [&](int p) {
+    const int row = p * kRp + rg;
+    if (col_ok && p < passes && row < k)
+      cp_async16(ring + (p % kSmStages) * kSmThreads + tid,
+                 b + (int64_t)row * n + col);
+    cp_async_commit();                         // one group per pass, even empty
+  };
+#pragma unroll
+  for (int p = 0; p < kSmStages - 1; ++p) issue(p);
+  __syncthreads();                             // A's rows are in
+
+  float acc[MT][kVec];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[i][j] = 0.0f;
+
+  for (int p = 0; p < passes; ++p) {
+    issue(p + kSmStages - 1);                  // the slot read one pass ago
+    cp_async_wait<kSmStages - 1>();            // pass p's copy has landed
+    const int row = p * kRp + rg;
+    if (row < k) {
+      float bv[kVec];
+      Vec<T>::unpack(ring[(p % kSmStages) * kSmThreads + tid], bv);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float av = load_f32(as + i * k + row);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[i][j] += av * bv[j];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // rows of one warp that share columns, then the warps, in a fixed order
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      float x = acc[i][j];
+#pragma unroll
+      for (int o = kTpr; o < 32; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane < kTpr) red[(warp * MT + i) * kSmCols + cg * kVec + j] = x;
+    }
+  __syncthreads();
+  for (int i = tid; i < m * kSmCols; i += kSmThreads) {
+    const int r = i / kSmCols, cc = i % kSmCols;
+    if (n0 + cc >= n) continue;
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSmWarps; ++w) sum += red[(w * MT + r) * kSmCols + cc];
+    c[(int64_t)r * n + n0 + cc] = from_f32<T>(sum);
+  }
+}
+
+template <typename T, int MT>
+int launch_small_m(const void* a, const void* b, const void* active, void* c,
+                   long long batch, long long m, long long n, long long k,
+                   cudaStream_t stream) {
+  const size_t smem = small_m_smem(MT, k, sizeof(T));
+  static bool opted_in = false;      // above 48 KB only after opting in
+  if (!opted_in) {
+    cudaFuncSetAttribute(small_m_matmul_kernel<T, MT>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kSmemLimit);
+    opted_in = true;
+  }
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kSmCols - 1) / kSmCols), (unsigned)batch);
+  small_m_matmul_kernel<T, MT><<<grid, kSmThreads, smem, stream>>>(
+      (const T*)a, (const T*)b, (const int32_t*)active, (T*)c, (int)m, (int)n,
+      (int)k);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_small_m(const void* a, const void* b, const void* active, void* c,
+                     long long batch, long long m, long long n, long long k,
+                     cudaStream_t s) {
+  if (m <= 1) return launch_small_m<T, 1>(a, b, active, c, batch, m, n, k, s);
+  if (m <= 2) return launch_small_m<T, 2>(a, b, active, c, batch, m, n, k, s);
+  if (m <= 4) return launch_small_m<T, 4>(a, b, active, c, batch, m, n, k, s);
+  if (m <= 8) return launch_small_m<T, 8>(a, b, active, c, batch, m, n, k, s);
+  if (m <= 16) return launch_small_m<T, 16>(a, b, active, c, batch, m, n, k, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// =========================================================== route "wgmma"
+
+constexpr int kWgBM = 128;                     // the activity tile
+constexpr int kWgBN = 128;
+constexpr int kWgBK = 64;                      // 128 bytes of bf16: one swizzle row
+constexpr int kWgStages = 3;            // 99 KB: two blocks an SM
+constexpr int kWgConsumers = 2;                // warpgroups, 64 rows each
+constexpr int kWgThreads = 128 * kWgConsumers + 32;   // + one producer warp
+constexpr int kATileBytes = kWgBM * kWgBK * 2;        // 16 KB
+constexpr int kBChunkBytes = kWgBK * 64 * 2;          // 64 K rows x 64 columns
+constexpr int kStageBytes = kATileBytes + 2 * kBChunkBytes;
+constexpr int kWgSmem = kWgStages * kStageBytes + 1024 + 2 * kWgStages * 8;
+
+__global__ void __launch_bounds__(kWgThreads, 2)
+wgmma_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const int32_t* __restrict__ active,
+                    __nv_bfloat16* __restrict__ c, int m, int n, int k) {
+  using namespace hopper;
+  const int e = blockIdx.z, tile = blockIdx.y;
+  const int m0 = tile * kWgBM, n0 = blockIdx.x * kWgBN;
+  const int tid = threadIdx.x;
+  c += (int64_t)e * m * n;
+
+  if (active[e * gridDim.y + tile] == 0) {     // inactive: no loads, zeros
+    for (int i = tid; i < kWgBM * kWgBN / 2; i += kWgThreads) {
+      const int r = m0 + i / (kWgBN / 2), col = n0 + 2 * (i % (kWgBN / 2));
+      if (r < m && col < n)
+        *reinterpret_cast<__nv_bfloat162*>(c + (int64_t)r * n + col) =
+            __floats2bfloat162_rn(0.0f, 0.0f);
+    }
+    return;
+  }
+
+  extern __shared__ uint8_t wg_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWgStages * kStageBytes);
+  uint64_t* empty = full + kWgStages;
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int k_tiles = (k + kWgBK - 1) / kWgBK;
+
+  if (tid >= 128 * kWgConsumers) {             // the producer warp
+    if (tid == 128 * kWgConsumers) {
+      prefetch_map(&map_a);
+      prefetch_map(&map_b);
+      // a B chunk wholly past N is not loaded: it feeds only columns >= N,
+      // which are never stored
+      const bool second = n0 + 64 < n;
+      const uint32_t bytes = kATileBytes + (second ? 2 : 1) * kBChunkBytes;
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(&empty[s], ph ^ 1);
+        uint8_t* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_3d(st, &map_a, &full[s], kt * kWgBK, m0, e);
+        tma_load_3d(st + kATileBytes, &map_b, &full[s], n0, kt * kWgBK, e);
+        if (second)
+          tma_load_3d(st + kATileBytes + kBChunkBytes, &map_b, &full[s],
+                      n0 + 64, kt * kWgBK, e);
+        if (++s == kWgStages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  int s = 0, prev = -1;
+  uint32_t ph = 0;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    mbar_wait(&full[s], ph);
+    const uint8_t* a_t = smem + s * kStageBytes + wg * (64 * 128);
+    const uint8_t* b_t = smem + s * kStageBytes + kATileBytes;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk)
+      ss_m64n128k16<1>(acc, desc_b128(a_t + 32 * kk, 16, 1024),
+                       desc_b128(b_t + 2048 * kk, kBChunkBytes, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();                           // the previous tile's products
+    fence_regs(acc);
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+    if (++s == kWgStages) { s = 0; ph ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // accumulator fragment: rows 16 warp + lane / 4 (+ 8), columns 8 j + 2
+  // (lane % 4) (+ 1); N % 8 == 0, so a pair is wholly in or out
+  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < kWgBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < m)
+        *reinterpret_cast<__nv_bfloat162*>(c + (int64_t)r * n + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int lm_wavefront_matmul(const void* a, const void* b,
@@ -124,4 +440,41 @@ extern "C" int lm_wavefront_matmul(const void* a, const void* b,
         m, n, k);
   }
   return (int)cudaGetLastError();
+}
+
+// bf16 only; the caller has checked TMA's rules: 16-byte-aligned bases,
+// K % 8 == 0 and N % 8 == 0 (row strides multiples of 16 bytes).
+extern "C" int lm_wavefront_matmul_wgmma(const void* a, const void* b,
+                                         const void* active, void* c,
+                                         long long batch, long long m,
+                                         long long n, long long k,
+                                         void* stream) {
+  CUtensorMap map_a, map_b;
+  if (!hopper::make_map_3d(&map_a, a, k, m, batch, k, m * k, kWgBM) ||
+      !hopper::make_map_3d(&map_b, b, n, k, batch, n, k * n, kWgBK))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaFuncSetAttribute(wgmma_matmul_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    opted_in = true;
+  }
+  const dim3 grid((unsigned)((n + kWgBN - 1) / kWgBN),
+                  (unsigned)((m + kWgBM - 1) / kWgBM), (unsigned)batch);
+  wgmma_matmul_kernel<<<grid, kWgThreads, kWgSmem, (cudaStream_t)stream>>>(
+      map_a, map_b, (const int32_t*)active, (__nv_bfloat16*)c, (int)m, (int)n,
+      (int)k);
+  return (int)cudaGetLastError();
+}
+
+// M <= 16; 16-byte-aligned bases and N * sizeof(T) % 16 == 0.
+extern "C" int lm_wavefront_matmul_small_m(const void* a, const void* b,
+                                           const void* active, void* c,
+                                           long long batch, long long m,
+                                           long long n, long long k, int bf16,
+                                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return dispatch_small_m<__nv_bfloat16>(a, b, active, c, batch, m, n, k, s);
+  return dispatch_small_m<float>(a, b, active, c, batch, m, n, k, s);
 }

@@ -1,6 +1,21 @@
-"""Public wrapper of flash attention with KV-tile skipping: the CUDA
-kernel for a CUDA tensor, the plain version (:mod:`.ref`) for a CPU
-tensor."""
+"""Public wrapper of flash attention with KV-tile skipping: a CUDA kernel
+for a CUDA tensor, the plain version (:mod:`.ref`) for a CPU tensor.
+
+Two hand-written kernels in ``csrc/flash_attention.cu``, three routes;
+:func:`route` picks one by an explicit rule, and a CUDA tensor always
+launches the routed kernel or raises:
+
+* ``"wgmma"``: bfloat16, ``head_dim`` a multiple of 16 up to 128, more
+  than :data:`DECODE_ROWS` query rows per KV head (prefill), TMA-legal
+  q, k and v; TMA and ``wgmma`` on the tensor cores;
+* ``"split"``: decode's rows (at most :data:`DECODE_ROWS` per KV head)
+  over a cache of more than :data:`SPLIT_TILES` 64-key tiles: the
+  ``simt`` kernel with the live KV prefix split over blocks of
+  :data:`SPLIT_TILES` tiles, the partial results combined in a fixed
+  order inside the same launch;
+* ``"simt"``: everything else (float32, other head dims, short caches):
+  the CUDA cores in float32.
+"""
 from __future__ import annotations
 
 import math
@@ -17,6 +32,31 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: is at most 2^-7 of it
 TOLERANCE = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 MAX_HEAD_DIM = 128
+ROUTES = ("wgmma", "split", "simt")
+#: query rows of one KV head (grouped heads x positions) up to which the
+#: rows are decode's, and ``split`` or ``simt`` takes them
+DECODE_ROWS = 16
+#: 64-key tiles a block of the ``split`` route takes
+SPLIT_TILES = 2
+_KEYS_PER_TILE = 64
+#: (device, stream) -> int32 arrival counters of the ``split`` route;
+#: each launch's last block sets its counter back to 0
+_COUNTERS: dict = {}
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route that computes the attention: ``"wgmma"``, ``"split"``
+    or ``"simt"`` (see the module docstring).  A pure function of the operands' type,
+    shape, layout and alignment."""
+    b, h, sq, d = q.shape
+    rows = h // max(1, k.shape[1]) * sq
+    if rows <= DECODE_ROWS:
+        tiles = -(-k.shape[2] // _KEYS_PER_TILE)
+        return "split" if tiles > SPLIT_TILES else "simt"
+    if q.dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM \
+            and sq > 1 and build.tma_legal(q, k, v):
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,6 +70,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query at row ``i`` sees keys ``< lengths[b]`` and, when ``causal``,
     ``<= i + (Sk - Sq)``.  Any ``Sq``, ``Sk`` and ``D <= 128``.
     """
+    lengths = _check(q, k, v, lengths)
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, lengths, causal).to(q.dtype)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return run_route(route(q, k, v), q, k, v, lengths, causal)
+
+
+def run_route(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lengths: torch.Tensor | None = None,
+              causal: bool = True) -> torch.Tensor:
+    """Launch route ``name``'s kernel on CUDA tensors; raises if that
+    kernel cannot take them.  :func:`flash_attention` calls it with
+    :func:`route`'s choice; a caller may name another route that takes
+    the operands, to hold or time one kernel against another."""
+    lengths = _check(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash_attention kernel for {q.device}")
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    if k.device != q.device or v.device != q.device \
+            or lengths.device != q.device:
+        raise ValueError("all operands must be on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if name not in ROUTES:
+        raise ValueError(f"unknown route {name!r}; routes are {ROUTES}")
+    if name == "wgmma" and (q.dtype != torch.bfloat16 or d % 16
+                            or not build.tma_legal(q, k, v)):
+        raise ValueError("route wgmma takes bfloat16, head_dim a multiple "
+                         "of 16 and TMA-legal q, k, v")
+    if name == "split" and h // kv * sq > DECODE_ROWS:
+        raise ValueError(f"route split takes at most {DECODE_ROWS} query "
+                         "rows per KV head")
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), b, h, kv, sq, sk, d, int(causal),
+            1.0 / math.sqrt(d))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if name == "wgmma":
+        err = build.entry("flash_attention", "lm_flash_attention_wgmma")(
+            *args, stream)
+    else:
+        split = (0, None, None)         # tiles a block, partials, counters
+        if name == "split":
+            tiles = -(-sk // _KEYS_PER_TILE)
+            splits = -(-tiles // SPLIT_TILES)
+            part = torch.empty((b * kv * splits * DECODE_ROWS * (d + 2),),
+                               dtype=torch.float32, device=q.device)
+            split = (SPLIT_TILES, part.data_ptr(),
+                     _counters(q.device, stream, b * kv).data_ptr())
+        err = build.entry("flash_attention", "lm_flash_attention")(
+            *args, int(q.dtype == torch.bfloat16), *split, stream)
+    flash_attention.launches += 1
+    flash_attention.by_route[name] += 1
+    build.check(err, f"flash_attention ({name})")
+    return out
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed arrival counters for launches on ``stream``
+    (kept, since each launch leaves them at 0 again)."""
+    key = (str(device), stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
+        _COUNTERS[key] = have
+    return have
+
+
+def _check(q, k, v, lengths) -> torch.Tensor:
+    """Validate the operands; returns ``lengths`` (all ``Sk`` for
+    ``None``)."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention takes q, k, v of one type, "
                         "float32 or bfloat16")
@@ -43,29 +159,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lengths = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must have shape ({b},)")
-    if q.device.type == "cpu":
-        return mha_ref(q, k, v, lengths, causal).to(q.dtype)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no flash_attention kernel for {q.device}")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
-    if k.device != q.device or v.device != q.device \
-            or lengths.device != q.device:
-        raise ValueError("all operands must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn = build.entry("flash_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), b, h, kv, sq, sk, d, int(causal),
-             1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.launches += 1
-    build.check(err, "flash_attention")
-    return out
+    return lengths
 
 
-#: kernel launches made through this wrapper (the CPU path counts none)
+#: kernel launches made through this wrapper (the CPU path counts none),
+#: in all and by route
 flash_attention.launches = 0
+flash_attention.by_route = dict.fromkeys(ROUTES, 0)

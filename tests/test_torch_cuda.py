@@ -183,6 +183,137 @@ def test_flash_attention_kernel_equals_plain(dev, dtype, b, h, kv, sq, sk,
     assert torch.equal(fops.flash_attention(q, k2, v2, lens, causal), got)
 
 
+@pytest.mark.parametrize("route,dtype,e,m,k,n", [
+    # wgmma: the 51-row last tile of M = 819, ragged K (48, 160), N = 96
+    ("wgmma", torch.bfloat16, 40, 819, 1536, 512),
+    ("wgmma", torch.bfloat16, 3, 819, 160, 96),
+    ("wgmma", torch.bfloat16, 5, 200, 48, 64),
+    ("wgmma", torch.bfloat16, 2, 17, 64, 8),
+    # small_m: 1, 2 and 16 rows, both types
+    ("small_m", torch.bfloat16, 40, 2, 1536, 512),
+    ("small_m", torch.bfloat16, 40, 1, 512, 1536),
+    ("small_m", torch.bfloat16, 6, 16, 160, 96),
+    ("small_m", torch.float32, 40, 2, 512, 1536),
+    ("small_m", torch.float32, 6, 16, 48, 36),
+    ("small_m", torch.float32, 5, 1, 100, 24),
+    # simt: float32 above 16 rows, rows TMA cannot read
+    ("simt", torch.float32, 3, 819, 160, 96),
+    ("simt", torch.bfloat16, 5, 200, 100, 64),
+    ("simt", torch.bfloat16, 3, 2, 64, 36)])
+def test_wavefront_matmul_each_route(dev, route, dtype, e, m, k, n):
+    """Each route on the shapes it is chosen for: within tolerance of the
+    plain version, inactive tiles exactly zero, its counter moved."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    g = torch.Generator(device=dev).manual_seed(e * m + k + n)
+    a = torch.randn((e, m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((e, k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    act = torch.randint(0, 2, (e, -(-m // 128)), generator=g, device=dev,
+                        dtype=torch.int32)
+    act[0, 0] = 1
+    act[-1, -1] = 0
+    assert mops.route(a, b) == route
+    before = dict(mops.wavefront_matmul.by_route)
+    got = mops.wavefront_matmul(a, b, act)
+    after = mops.wavefront_matmul.by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    exp = mref.wavefront_matmul_ref(a, b, act)
+    torch.cuda.synchronize()
+    assert _within(got, exp, mops.TOLERANCE[dtype])
+    assert torch.count_nonzero(got[~mref.tile_mask(act, m)]) == 0
+    zero = mops.wavefront_matmul(a, b, torch.zeros_like(act))
+    assert torch.count_nonzero(zero) == 0
+
+
+@pytest.mark.parametrize("e,m,k,n", [(40, 819, 1536, 512), (40, 2, 512, 1536),
+                                     (6, 16, 160, 96)])
+def test_wavefront_matmul_previous_design_on_bf16(dev, e, m, k, n):
+    """The simt kernel, the first design, still takes bf16 when named, and
+    agrees with the routed kernel within twice the tolerance."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    a = torch.randn((e, m, k), generator=g, device=dev).bfloat16()
+    b = (torch.randn((e, k, n), generator=g, device=dev) / k ** 0.5).bfloat16()
+    act = torch.ones((e, -(-m // 128)), device=dev, dtype=torch.int32)
+    before = mops.wavefront_matmul.by_route["simt"]
+    old = mops.run_route("simt", a, b, act)
+    assert mops.wavefront_matmul.by_route["simt"] == before + 1
+    exp = mref.wavefront_matmul_ref(a, b, act)
+    torch.cuda.synchronize()
+    assert _within(old, exp, mops.TOLERANCE[torch.bfloat16])
+    with pytest.raises(ValueError, match="wgmma"):
+        mops.run_route("wgmma", a.float(), b.float(), act)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (8, 24, 8, 512, 512, 64, True),       # the granite serve's prefill
+    (3, 6, 2, 200, 200, 64, True),        # G = 3, ragged lengths
+    (2, 6, 2, 100, 300, 128, True),       # head_dim 128, Sk > Sq
+    (2, 4, 1, 130, 130, 128, False),      # G = 4: two head groups
+    (2, 2, 2, 96, 200, 32, True)])        # head_dim below 64
+def test_flash_attention_wgmma_route(dev, b, h, kv, sq, sk, d, causal):
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    g = torch.Generator(device=dev).manual_seed(b * h + sq + d)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+    q, k, v = mk(b, h, sq, d), mk(b, kv, sk, d), mk(b, kv, sk, d)
+    lens = torch.randint(1, sk + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0] = sk
+    assert fops.route(q, k, v) == "wgmma"
+    before = dict(fops.flash_attention.by_route)
+    got = fops.flash_attention(q, k, v, lens, causal)
+    assert fops.flash_attention.by_route["wgmma"] == before["wgmma"] + 1
+    assert fops.flash_attention.by_route["simt"] == before["simt"]
+    exp = fref.mha_ref(q, k, v, lens, causal).bfloat16()
+    torch.cuda.synchronize()
+    assert _within(got, exp, fops.TOLERANCE[torch.bfloat16])
+    # poisoned keys past each request's length change no bit
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, :, n:] = 1e4
+        v2[i, :, n:] = -1e4
+    assert torch.equal(fops.flash_attention(q, k2, v2, lens, causal), got)
+    # the previous design on the same inputs
+    old = fops.run_route("simt", q, k, v, lens, causal)
+    torch.cuda.synchronize()
+    assert _within(old, exp, fops.TOLERANCE[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (8, 24, 8, 1, 1024, 64, False),       # the granite serve's decode
+    (3, 6, 2, 1, 300, 12, False),         # ragged head_dim, a short split
+    (2, 4, 4, 4, 500, 128, True)])        # 4 rows a KV head, causal
+def test_flash_attention_split_route(dev, dtype, b, h, kv, sq, sk, d, causal):
+    """Decode's rows over a long cache: the live prefix split over
+    blocks, combined in a fixed order in the same launch."""
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    g = torch.Generator(device=dev).manual_seed(sk + d)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q, k, v = mk(b, h, sq, d), mk(b, kv, sk, d), mk(b, kv, sk, d)
+    lens = torch.randint(1, sk + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0], lens[-1] = sk, 40            # a full cache and one tile
+    assert fops.route(q, k, v) == "split"
+    before = dict(fops.flash_attention.by_route)
+    got = fops.flash_attention(q, k, v, lens, causal)
+    assert fops.flash_attention.by_route["split"] == before["split"] + 1
+    exp = fref.mha_ref(q, k, v, lens, causal).to(dtype)
+    torch.cuda.synchronize()
+    assert _within(got, exp, fops.TOLERANCE[dtype])
+    # the same bits again (the counters were left at 0), and with poisoned
+    # keys past each length
+    assert torch.equal(fops.flash_attention(q, k, v, lens, causal), got)
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, :, n:] = 1e4
+        v2[i, :, n:] = -1e4
+    assert torch.equal(fops.flash_attention(q, k2, v2, lens, causal), got)
+    old = fops.run_route("simt", q, k, v, lens, causal)
+    torch.cuda.synchronize()
+    assert _within(old, exp, fops.TOLERANCE[dtype])
+
+
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.wavefront_matmul import ops as mops
