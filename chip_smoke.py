@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --suite-ab PARENT
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -9,20 +10,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    csrc`` with nvcc for sm_90a;
 2. hold each kernel against its plain PyTorch version on CUDA tensors,
    bit for bit (bfloat16 dot at the reference tests' rtol 2e-2): the
-   shapes of the reference's ``tests/test_kernels.py``, the main path's
-   shapes, and tensors of special values (NaN payloads, +-inf, +-0,
-   subnormals);
+   eGPU kernels' ``tile`` routes at the shapes of the reference's
+   ``tests/test_kernels.py`` and of one register column, their ``step``
+   routes on (B, 512, 32) register files at the main path's B = 1, 4
+   and 18 with mixed opcodes and predicates, all on tensors of special
+   values (NaN payloads, +-inf, +-0, subnormals);
 3. drive the main path: every paper-size suite job through
    ``run_program``, then all of them as lock-step ``fleet_run`` batches
    (one per configuration), each result held against its numpy oracle
    and every leaf against the committed digests of the JAX reference
    (``src/repro_torch/programs/reference_digests.json``); each job is
    also run on the CPU and its leaves compared with the CUDA run's.
-   The kernels' launch counters are zeroed just before and read just
-   after the CUDA runs, and each must be > 0;
-4. time each kernel, its plain version and one PyTorch library call
-   for the same function, at the main path's shapes (CUDA events,
-   warm-up, median);
+   The kernels' launch counters (in all and by route) are zeroed just
+   before and read just after the CUDA runs; each must be > 0, every
+   eGPU launch on the ``step`` route.  Then FP and DOT/SUM steps under
+   ``torch.profiler``: kernels and torch ops a step and host µs a step,
+   the main path's (one kernel, no torch op, or it fails) beside the
+   previous composition's;
+4. time each eGPU kernel four ways, device time (a CUDA graph of
+   launches) and eager: the ``step`` route as ``run_program`` issues
+   it, the ``tile`` route, the previous composition and one PyTorch
+   library call for the same function; the plain version eagerly;
 5. the LM serving path (``repro_torch.launch.serve``): the LM kernels
    (``wavefront_matmul``, ``flash_attention``), every route of each
    (``ops.route``: ``wgmma``, ``small_m``, ``split``, ``simt``), against
@@ -46,11 +54,18 @@ Phases, in order; any failure exits non-zero and prints no result:
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX or of the JAX package ``repro``.
+
+``--suite-ab PARENT`` times the main path alone (the suite through
+``run_program`` and both ``fleet_run`` batches, leaves held against the
+digests) on the port of an older checkout (``PARENT``, its root) and on
+this one, each in its own process, in turns (parent, this, this,
+parent), and prints each run and the medians.
 """
 from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -108,9 +123,10 @@ def fleet_batches() -> dict:
 
 
 def main_path_rows() -> tuple:
-    """``(rows, cores)`` of every kernel call shape the main path makes:
-    a core's register column is ``(T / 16, 16)``; ``run_program`` is one
-    core and a fleet batch stacks its cores' rows."""
+    """``(rows, cores)``: a core's register column as the ``tile`` routes
+    take it, ``(T / 16, 16)``, and the batch sizes of the main path's
+    step launches (``run_program`` is one core, each ``fleet_run`` batch
+    its cores)."""
     from repro_torch.core import benchmark_config
     cfg = benchmark_config()
     rows = cfg.max_threads // cfg.num_sps
@@ -195,6 +211,68 @@ def check_kernels(dev) -> dict:
     return worst
 
 
+#: the eGPU register file of the paper's benchmark configuration
+EGPU_T, EGPU_R = 512, 32
+
+
+def step_case(dev, rng, batch, with_pred, kinds=None):
+    """Step-kernel inputs at the main path's shapes: a ``(batch, 512, 32)``
+    register file of special values, one trace row a core (opcodes drawn
+    from ``kinds``, default a mix of FP, DOT, SUM and others; rd/ra/rb
+    often equal), random TSC masks and, if asked, a predicate mask."""
+    import torch
+    from repro_torch.core import Op, executor
+    pool = kinds or ([int(o) for o in executor.FP_OPCODES
+                      + executor.EXT_OPCODES]
+                     + [int(Op.ADD), int(Op.LOD), int(Op.NOP)])
+    regs = torch.from_numpy(special(rng, (batch, EGPU_T, EGPU_R))
+                            .view(np.int32)).to(dev)
+    rows = np.zeros((batch, 7), np.int64)
+    rows[:, 0] = rng.choice(pool, batch)
+    rows[:, 2:5] = rng.integers(0, 4, (batch, 3))
+    rows[:, 6] = rng.integers(0, 16, batch)
+    masks = torch.from_numpy(rng.random((batch, 16, EGPU_T)) < 0.7).to(dev)
+    pred = torch.from_numpy(rng.random((batch, EGPU_T)) < 0.6).to(dev) \
+        if with_pred else None
+    return regs, torch.from_numpy(rows).to(dev), masks, pred
+
+
+def check_step_kernels(dev) -> None:
+    """Both step kernels against their plain versions, bit for bit, at the
+    main path's batch sizes (1 core, the 4- and 18-core fleet batches),
+    512 threads and 32 registers, with and without a predicate mask."""
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.kernels.dot_product import ops as dops, ref as dref
+    from repro_torch.kernels.wavefront_alu import ops as wops, ref as wref
+    rng = np.random.default_rng(17)
+    forms = (("wavefront_alu", wops.fp_step, wref.fp_step_ref,
+              executor.FP_OPCODES),
+             ("dot_product", dops.ext_step, dref.ext_step_ref,
+              executor.EXT_OPCODES))
+    n = 0
+    for batch in sorted({1} | set(main_path_rows()[1])):
+        for with_pred in (False, True):
+            for kinds in (None, list(executor.FP_OPCODES),
+                          list(executor.EXT_OPCODES)):
+                regs, rows, masks, pred = step_case(dev, rng, batch,
+                                                    with_pred, kinds)
+                for name, run, plain, opcodes in forms:
+                    got, exp = regs.clone(), regs.clone()
+                    run(got, rows, masks, pred, opcodes)
+                    plain(exp, rows, masks, pred, opcodes)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, exp):
+                        raise AssertionError(
+                            f"{name} step, {batch} cores, pred {with_pred}: "
+                            "differs from its plain version")
+                    n += 1
+    log(f"[kernels] step routes (wavefront_alu fp_step, dot_product "
+        f"ext_step): {n} cases bit-identical at (B, {EGPU_T}, {EGPU_R}), "
+        "B = 1, 4, 18, mixed opcodes, with and without predicates, "
+        "special values")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -229,8 +307,9 @@ def run_suite(dev) -> dict:
         programs, benchmark_config, [suite.SUITE[i] for i in idx], config=c)
         for c, idx in fleet_batches().items()}
 
-    wavefront_alu.launches = 0
-    dot_product.launches = 0
+    for f in (wavefront_alu, dot_product):
+        f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
     cuda_leaves, rows = {}, []
     t_main = time.perf_counter()
     for b in jobs:
@@ -265,10 +344,18 @@ def run_suite(dev) -> dict:
     main_wall = time.perf_counter() - t_main
     launches = {"wavefront_alu": wavefront_alu.launches,
                 "dot_product": dot_product.launches}
-    log(f"[suite] main path wall {main_wall:.3f}s, kernel launches {launches}")
+    routes = {"wavefront_alu": dict(wavefront_alu.by_route),
+              "dot_product": dict(dot_product.by_route)}
+    log(f"[suite] main path wall {main_wall:.3f}s, kernel launches "
+        f"{launches}, by route {routes}")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} was never launched on the main path")
+    for k, v in routes.items():
+        # every FP and DOT/SUM step is one launch of the step route
+        if v["step"] != launches[k] or v["tile"]:
+            raise AssertionError(f"{k}: the main path's launches by route "
+                                 f"{v}, expected all on 'step'")
 
     t0 = time.perf_counter()
     for b in jobs:
@@ -281,7 +368,7 @@ def run_suite(dev) -> dict:
             raise AssertionError(f"{b.name}: CUDA and CPU leaves {bad} differ")
     log(f"[suite] every job's CUDA leaves equal its CPU run's "
         f"({time.perf_counter() - t0:.1f}s on the CPU)")
-    return {"launches": launches, "jobs": rows,
+    return {"launches": launches, "routes": routes, "jobs": rows,
             "steps": sum(r[1] for r in rows), "wall_s": main_wall}
 
 
@@ -342,67 +429,305 @@ def graph_ms(fn, reps=40, rounds=5) -> float:
     return statistics.median(out)
 
 
-def time_kernels(dev, worst: dict, launches: dict) -> list:
+def previous_composition(cfg, regs, masks):
+    """One core's FP or DOT/SUM step as the main path ran it before the
+    step kernels (the single-core path of ``make_step`` then): views
+    of the register columns, the value function of ``build_spec`` (for
+    FP ``fp_alu``, for DOT/SUM ``ext_dot``: the ``tile`` kernels and the
+    tile bitmap, contiguous copies and casts around them), then
+    ``torch.where`` with the write mask and the column write.  Returns
+    ``step(pred, row)`` for a trace row of Python ints."""
+    import dataclasses
     import torch
+    from repro_torch.core import Op, semantics
+    tid = torch.arange(regs.shape[1], dtype=torch.int32, device=regs.device)
+    is_t0 = tid == 0
+    ext = (int(Op.DOT), int(Op.SUM))
+
+    def step(pred, row):
+        op, _typ, rd, ra, rb, imm, tsc = row
+        rdv, rav, rbv = (regs[:, :, r] for r in (rd, ra, rb))
+        mask = masks[:, tsc] if pred is None else masks[:, tsc] & pred
+        env = semantics.OpEnv(cfg=cfg, rav=rav, rbv=rbv, rdv=rdv,
+                              signed=False, imm=imm, mask=mask, tid=tid,
+                              shared=None, tdx_dim=16)
+        wm = is_t0.expand_as(mask) if op in ext else mask
+        val = semantics.build_spec(dataclasses.replace(env, wmask=wm))[op][0]()
+        regs[:, :, rd] = torch.where(wm, val, rdv)
+
+    return step
+
+
+def egpu_counters():
+    from repro_torch.kernels.dot_product.ops import dot_product
+    from repro_torch.kernels.wavefront_alu.ops import wavefront_alu
+    return {"wavefront_alu": wavefront_alu, "dot_product": dot_product}
+
+
+def step_programs(cfg, n=64) -> dict:
+    """Programs of ``n`` FP steps (the five opcodes in turn) and of ``n``
+    DOT/SUM steps, nothing else but STOP; rd is never ra or rb."""
+    from repro_torch.core import Asm
+    out = {}
+    for kind in ("FP", "DOT/SUM"):
+        a = Asm(cfg)
+        for j in range(n):
+            if kind == "FP":
+                (a.fadd, a.fsub, a.fmul, a.fmax, a.fmin)[j % 5](
+                    4 + j % 8, 1, 2)
+            elif j % 2:
+                a.sum_(12 + j % 4, 1)
+            else:
+                a.dot(12 + j % 4, 1, 2)
+        a.stop()
+        out[kind] = a.assemble(schedule_nops=False)
+    return out
+
+
+def window(fn, steps: int) -> dict:
+    """Device kernels and torch ops a step over one call of ``fn`` (which
+    runs ``steps`` steps), by ``torch.profiler``; and host µs a step of
+    another, unprofiled call (ended by a synchronise)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    ev = prof.key_averages()
+    kern = {}
+    for e in ev:
+        if dev_us(e) > 0 and str(getattr(e, "device_type", "")
+                                 ).endswith("CUDA"):
+            k = re.match(r"(?:void )?([\w:]+)", e.key.replace(
+                "(anonymous namespace)::", "")).group(1).split("::")[-1]
+            kern[k] = kern.get(k, 0) + e.count
+    aten = {e.key: e.count for e in ev if e.key.startswith("aten::")}
+    return {"kernels": sum(kern.values()) / steps if kern else None,
+            "kernel_names": kern, "torch_ops": sum(aten.values()) / steps,
+            "torch_op_names": aten, "host_us": host_us}
+
+
+def profile_steps(dev) -> dict:
+    """Where an eGPU FP or DOT/SUM step's time goes: the main path's step
+    (``executor.run_steps`` over a program of nothing but such steps, one
+    core; and an 18-core fleet whose every step mixes the five FP
+    opcodes) against the previous composition on the same trace rows.
+    Raises if a step of the main path issues more than its one kernel or
+    any torch op around it."""
+    import torch
+    from repro_torch.core import (Asm, benchmark_config, executor,
+                                  init_state, run_program)
+    from repro_torch.core.executor import pad_image
+    from repro_torch.fleet import fleet_run
+    cfg = benchmark_config(has_dot=True)
+    rng = np.random.default_rng(23)
+    inner = executor.run_steps
+    out = {}
+    for kind, image in step_programs(cfg).items():
+        st = init_state(cfg, threads=EGPU_T, device=dev)
+        st.regs.copy_(torch.from_numpy(special(rng, (EGPU_T, EGPU_R))
+                                       .view(np.int32)).to(dev))
+        got = {}
+
+        def grab(step, step_ops, host_rows):
+            got["now"] = window(lambda: inner(step, step_ops, host_rows),
+                                image.n - 1)
+            inner(step, step_ops, host_rows)
+
+        executor.run_steps = grab
+        try:
+            run_program(image, state=st)
+        finally:
+            executor.run_steps = inner
+        masks = torch.from_numpy(executor.tsc_masks(cfg, EGPU_T)[None]).to(dev)
+        prev = previous_composition(cfg, st.regs.clone()[None], masks)
+        rows = pad_image(image)[0][:image.n - 1].tolist()
+        got["previous"] = window(lambda: [prev(None, r) for r in rows],
+                                 len(rows))
+        out[kind] = got
+    # the fleet: 18 cores, core k runs the five FP opcodes rotated by k
+    images = []
+    for k in range(18):
+        a = Asm(cfg)
+        for j in range(64):
+            (a.fadd, a.fsub, a.fmul, a.fmax, a.fmin)[(j + k) % 5](
+                4 + j % 8, 1, 2)
+        a.stop()
+        images.append(a.assemble(schedule_nops=False))
+    got = {}
+
+    def grab_fleet(step, step_ops, host_rows):
+        got["now"] = window(lambda: inner(step, step_ops, host_rows), 64)
+        inner(step, step_ops, host_rows)
+
+    executor.run_steps = grab_fleet
+    try:
+        fleet_run(images, device=dev)
+    finally:
+        executor.run_steps = inner
+    out["FP, 18-core fleet"] = got
+    for kind, got in out.items():
+        for design, w in got.items():
+            k = "not measured" if w["kernels"] is None else \
+                f"{w['kernels']:.2f}"
+            log(f"[profile-egpu] {kind} steps, {design}: {k} kernels a step "
+                f"{w['kernel_names']}, {w['torch_ops']:.2f} torch ops a step "
+                f"{w['torch_op_names']}, host {w['host_us']:.1f} us a step "
+                "(unprofiled)")
+        now = got["now"]
+        if now["torch_ops"] or now["kernels"] not in (None, 1.0):
+            raise AssertionError(f"{kind}: the main path's step issues "
+                                 f"{now['kernels']} kernels and "
+                                 f"{now['torch_op_names']}, expected one "
+                                 "kernel and no torch op")
+    return out
+
+
+def time_kernels(dev, worst: dict, launches: dict, routes: dict) -> list:
+    """Each eGPU kernel timed four ways at the main path's shapes, device
+    time (a CUDA graph of launches) and eager (the host's issue pace):
+    the ``step`` route as ``run_program`` issues it (one core, 512
+    threads, 32 registers, every thread active), the ``tile`` route (the
+    TPU kernel's function on one register column, (32, 16)), the previous
+    composition (:func:`previous_composition`) and one library call;
+    the step route's plain version eagerly; the step route again over
+    the 18-core fleet batch."""
+    import torch
+    from repro_torch.core import Op, benchmark_config, executor, isa
     from repro_torch.kernels.dot_product import ops as dops, ref as dref
     from repro_torch.kernels.wavefront_alu import ops as wops, ref as wref
 
     rng = np.random.default_rng(7)
-    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    out = []
-    # one eGPU core's register column: 512 threads as (32 wavefronts, 16 SPs)
-    rows, _ = main_path_rows()
-    lanes = 16
-    a, b, init = (to(rng.standard_normal((rows, lanes)).astype(np.float32))
-                  for _ in range(3))
+    cfg = benchmark_config(has_dot=True)
+    counters = egpu_counters()
+    saved = {k: (f.launches, dict(f.by_route)) for k, f in counters.items()}
+    rows, lanes = main_path_rows()[0], 16
+    regs = torch.from_numpy(rng.standard_normal((1, EGPU_T, EGPU_R))
+                            .astype(np.float32).view(np.int32)).to(dev)
+    masks = torch.from_numpy(executor.tsc_masks(cfg, EGPU_T)[None]).to(dev)
+    full = isa.TSC_FULL
+    fleet = main_path_rows()[1][-1]
+    fregs = regs.expand(fleet, EGPU_T, EGPU_R).contiguous()
+    fmasks = masks.expand(fleet, 16, EGPU_T).contiguous()
+    n = EGPU_T
+    a, b = (regs[0, :, r].contiguous().view(torch.float32).view(rows, lanes)
+            for r in (1, 2))
+    init = regs[0, :, 5].contiguous().view(torch.float32).view(rows, lanes)
     act = torch.ones((-(-rows // 8),), dtype=torch.int32, device=dev)
-    mask = torch.ones((rows, lanes), dtype=torch.bool, device=dev)
-    n = rows * lanes
-    # an active tile reads a and b, an inactive one reads init; every
-    # tile writes out and reads its flag
-    on_elems = min(n, int(act.sum()) * 8 * lanes)
-    nbytes = 4 * (2 * on_elems + (n - on_elems) + n) + 4 * act.numel()
-    by_bytes = nbytes / PEAK_BYTES_S >= on_elems / PEAK_F32_S
-    bound = max(nbytes / PEAK_BYTES_S, on_elems / PEAK_F32_S) * 1e3
-    out.append({
-        "name": "wavefront_alu", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/wavefront_alu.cu",
-        "replaces": "src/repro/kernels/wavefront_alu/kernel.py:50",
-        "launches": launches["wavefront_alu"],
-        "max_abs_err": worst["wavefront_alu"],
-        "ms": time_ms(lambda: wops.wavefront_alu(a, b, init, act, "add")),
-        "plain_ms": time_ms(lambda: wref.wavefront_alu_ref(a, b, init, act,
-                                                           "add")),
-        "bound_ms": bound,
-        "bound_by": "bytes" if by_bytes else "operations",
-        "library_ms": time_ms(lambda: torch.where(mask, torch.add(a, b),
-                                                  init)),
-        "shape": [rows, lanes], "op": "add"})
-
-    # DOT over one core's thread space: (1, 32, 16)
-    da = to(rng.standard_normal((1, rows, lanes)).astype(np.float32))
-    db = to(rng.standard_normal((1, rows, lanes)).astype(np.float32))
-    dact = torch.ones((1, rows // 8), dtype=torch.int32, device=dev)
-    nbytes = 4 * 2 * n + 4 * dact.numel() + 4
-    ops_ = 2 * n
-    out.append({
-        "name": "dot_product", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/dot_product.cu",
-        "replaces": "src/repro/kernels/dot_product/kernel.py:41",
-        "launches": launches["dot_product"],
-        "max_abs_err": worst["dot_product"],
-        "ms": time_ms(lambda: dops.dot_product(da, db, dact)),
-        "plain_ms": time_ms(lambda: dref.dot_product_ref(da, db, dact),
-                            reps=20),
-        "bound_ms": max(nbytes / PEAK_BYTES_S, ops_ / PEAK_F32_S) * 1e3,
-        "bound_by": "bytes" if nbytes / PEAK_BYTES_S >= ops_ / PEAK_F32_S
-        else "operations",
-        "library_ms": time_ms(lambda: (da * db).sum()),
-        "shape": [1, rows, lanes]})
+    mask = masks[0, full].view(rows, lanes)
+    da, db = a.view(1, rows, lanes), b.view(1, rows, lanes)
+    dact = torch.ones((1, -(-rows // 8)), dtype=torch.int32, device=dev)
+    specs = {
+        "wavefront_alu": dict(
+            op=Op.FADD, rd=5, run=wops.fp_step, launcher=wops.fp_step_launcher,
+            plain=wref.fp_step_ref, opcodes=executor.FP_OPCODES,
+            fleet_ops=executor.FP_OPCODES,
+            tile=lambda: wops.wavefront_alu(a, b, init, act, "add"),
+            library=lambda: torch.where(mask, torch.add(a, b), init),
+            library_name="torch.where(mask, torch.add(a, b), init)",
+            # Ra, Rb read and Rd written a thread, its mask byte, the row
+            step_bytes=12 * n + n + 56, step_ops=n,
+            # an active tile reads a and b, every tile writes out and
+            # reads its flag (all tiles active here)
+            tile_bytes=4 * 3 * n + 4 * act.numel(), tile_ops=n,
+            source="src/repro_torch/kernels/csrc/wavefront_alu.cu",
+            replaces="src/repro/kernels/wavefront_alu/kernel.py:50"),
+        "dot_product": dict(
+            op=Op.DOT, rd=6, run=dops.ext_step, launcher=dops.ext_step_launcher,
+            plain=dref.ext_step_ref, opcodes=executor.EXT_OPCODES,
+            fleet_ops=executor.EXT_OPCODES,
+            tile=lambda: dops.dot_product(da, db, dact),
+            library=lambda: (da * db).sum(),
+            library_name="(a * b).sum()",
+            # Ra and Rb read a thread, its mask byte, the row; one word out
+            step_bytes=8 * n + n + 56 + 4, step_ops=2 * n,
+            tile_bytes=4 * 2 * n + 4 * dact.numel() + 4, tile_ops=2 * n,
+            source="src/repro_torch/kernels/csrc/dot_product.cu",
+            replaces="src/repro/kernels/dot_product/kernel.py:41"),
+    }
+    bound = lambda nbytes, ops: (max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S)
+                                 * 1e3, "bytes" if nbytes / PEAK_BYTES_S
+                                 >= ops / PEAK_F32_S else "operations")
+    out = []
+    for name, sp in specs.items():
+        row = [int(sp["op"]), 0, sp["rd"], 1, 2, 0, full]
+        tr = torch.tensor([row], dtype=torch.int64, device=dev)
+        prev = previous_composition(cfg, regs, masks)
+        # the previous composition and the step route agree on these inputs
+        x, y = regs.clone(), regs.clone()
+        sp["run"](x, tr, masks, None, sp["opcodes"])
+        previous_composition(cfg, y, masks)(None, row)
+        torch.cuda.synchronize()
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: step route and previous "
+                                 "composition differ")
+        launch = sp["launcher"](regs, masks, sp["opcodes"])
+        ftr = torch.tensor([[sp["fleet_ops"][k % len(sp["fleet_ops"])], 0,
+                             sp["rd"], 1, 2, 0, full] for k in range(fleet)],
+                           dtype=torch.int64, device=dev)
+        fns = {"step": lambda: sp["run"](regs, tr, masks, None, sp["opcodes"]),
+               "tile": sp["tile"], "previous": lambda: prev(None, row),
+               "library": sp["library"]}
+        eager = {"step": lambda: launch(tr.data_ptr(), 0), **{
+            k: v for k, v in fns.items() if k != "step"}}
+        # in turns, each form twice, the median of the two
+        dev_ms, eager_ms = {k: [] for k in fns}, {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                dev_ms[k].append(graph_ms(fns[k]))
+                eager_ms[k].append(time_ms(eager[k]))
+        med = lambda d: {k: statistics.median(v) for k, v in d.items()}
+        dev_ms, eager_ms = med(dev_ms), med(eager_ms)
+        fleet_ms = graph_ms(lambda: sp["run"](fregs, ftr, fmasks, None,
+                                              sp["opcodes"]))
+        flaunch = sp["launcher"](fregs, fmasks, sp["opcodes"])
+        fleet_eager = time_ms(lambda: flaunch(ftr.data_ptr(), 0))
+        pregs = regs.clone()                # the plain version is in place
+        plain_ms = time_ms(lambda: sp["plain"](pregs, tr, masks, None,
+                                               sp["opcodes"]), reps=20)
+        step_bound, step_by = bound(sp["step_bytes"], sp["step_ops"])
+        tile_bound, tile_by = bound(sp["tile_bytes"], sp["tile_ops"])
+        fleet_bound, _ = bound(fleet * sp["step_bytes"],
+                               fleet * sp["step_ops"])
+        out.append({
+            "name": name, "route": "cuda", "source": sp["source"],
+            "replaces": sp["replaces"], "launches": launches[name],
+            "routes": routes[name], "kernel_route": "step",
+            "max_abs_err": worst[name], "ms": dev_ms["step"],
+            "eager_ms": eager_ms["step"], "plain_ms": plain_ms,
+            "bound_ms": step_bound, "bound_by": step_by,
+            "library_ms": dev_ms["library"],
+            "library_eager_ms": eager_ms["library"],
+            "library_call": sp["library_name"],
+            "prev_ms": dev_ms["previous"], "prev_eager_ms": eager_ms["previous"],
+            "tile": {"ms": dev_ms["tile"], "eager_ms": eager_ms["tile"],
+                     "bound_ms": tile_bound, "bound_by": tile_by,
+                     "shape": [rows, lanes]},
+            "shape": [1, EGPU_T, EGPU_R], "op": sp["op"].name,
+            "cases": [{"cores": fleet, "ms": fleet_ms, "eager_ms": fleet_eager,
+                       "bound_ms": fleet_bound}]})
+    for k, f in counters.items():                   # timing is not the run
+        f.launches, f.by_route = saved[k]
     for k in out:
-        log(f"[timing] {k['name']} {k['shape']}: kernel {k['ms']:.5f} ms, "
-            f"plain {k['plain_ms']:.5f} ms, library {k['library_ms']:.5f} ms,"
-            f" bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
+        log(f"[timing] {k['name']} {k['op']} step {k['shape']}: device "
+            f"{k['ms']:.5f} ms (eager {k['eager_ms']:.5f}); tile {k['tile']['shape']} "
+            f"{k['tile']['ms']:.5f} (eager {k['tile']['eager_ms']:.5f}); "
+            f"previous composition {k['prev_ms']:.5f} (eager "
+            f"{k['prev_eager_ms']:.5f}); library {k['library_call']} "
+            f"{k['library_ms']:.5f} (eager {k['library_eager_ms']:.5f}); "
+            f"plain {k['plain_ms']:.5f}; bound {k['bound_ms']:.7f} "
+            f"({k['bound_by']}); {k['cases'][0]['cores']} cores: device "
+            f"{k['cases'][0]['ms']:.5f} (eager {k['cases'][0]['eager_ms']:.5f}),"
+            f" bound {k['cases'][0]['bound_ms']:.7f}")
     return out
 
 
@@ -807,7 +1132,6 @@ def lm_kernels_at_serve(dev, full: dict) -> list:
 def ptxas_report(logs: dict) -> list:
     """``(kernel, function, registers, spills, static shared bytes)`` for
     each function nvcc's ``-Xptxas -v`` reported."""
-    import re
     out = []
     for kernel, text in sorted(logs.items()):
         fn = spill = None
@@ -826,6 +1150,87 @@ def ptxas_report(logs: dict) -> list:
     return out
 
 
+def suite_time(dev) -> dict:
+    """The main path's pace alone: the 22-job suite through
+    ``run_program`` (after one warm-up job) and both ``fleet_run``
+    batches, each result's leaves held against the reference's digests
+    after its run.  Uses only entry points that every slice of the port
+    has, so ``--suite-ab`` can run it on an older tree."""
+    import torch
+    from repro_torch import programs
+    from repro_torch.core import benchmark_config, run_program
+    from repro_torch.core.machine import state_to_numpy
+    from repro_torch.fleet import fleet_run, unstack_state
+    from repro_torch.programs import suite
+    digests = suite.load_digests()
+
+    def held(b, st):
+        got = suite.leaf_digests(state_to_numpy(st))
+        if got != digests[b.name]["leaves"]:
+            raise AssertionError(f"{b.name}: leaves differ from the digests")
+
+    jobs = suite.build_suite(programs, benchmark_config)
+    kw = lambda b: dict(shared_init=b.shared_init, tdx_dim=b.tdx_dim)
+    run_program(jobs[0].image, device=dev, **kw(jobs[0]))       # warm-up
+    steps, wall = 0, 0.0
+    for b in jobs:
+        t0 = time.perf_counter()
+        st = run_program(b.image, device=dev, **kw(b))
+        wall += time.perf_counter() - t0
+        steps += int(st.steps)
+        held(b, st)
+    fleet = {}
+    for c, idx in fleet_batches().items():
+        bj = suite.build_suite(programs, benchmark_config,
+                               [suite.SUITE[i] for i in idx], config=c)
+        t0 = time.perf_counter()
+        out = fleet_run([b.image for b in bj], init_kw=[kw(b) for b in bj],
+                        device=dev)
+        torch.cuda.synchronize()
+        fleet[c] = time.perf_counter() - t0
+        for i, b in enumerate(bj):
+            held(b, unstack_state(out, i))
+    return {"run_program_steps": steps, "run_program_s": wall,
+            "us_per_step": 1e6 * wall / steps, "fleet_s": fleet}
+
+
+def suite_ab(parent: str) -> int:
+    """``--suite-ab PARENT``: the suite's pace on an older tree of the
+    port (``PARENT``, a checkout's root) and on this one, in turns
+    (parent, this, this, parent), each in its own process on the same
+    card; prints each run and the medians."""
+    runs = []
+    for label, root in (("parent", parent), ("this", str(ROOT)),
+                        ("this", str(ROOT)), ("parent", parent)):
+        p = subprocess.run([sys.executable, str(pathlib.Path(__file__)
+                                                .resolve()),
+                            "--suite-time", str(pathlib.Path(root) / "src")],
+                           capture_output=True, text=True, timeout=900)
+        line = [x for x in p.stdout.splitlines() if x.startswith("{")]
+        if p.returncode != 0 or not line:
+            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+            return p.returncode or 1
+        r = json.loads(line[-1])
+        runs.append((label, r))
+        log(f"[suite-ab] {label} ({root}): run_program {r['us_per_step']:.2f}"
+            f" us a step ({r['run_program_steps']} steps, "
+            f"{r['run_program_s']:.3f}s); fleet walls {r['fleet_s']}")
+    med = {}
+    for label in ("parent", "this"):
+        rs = [r for lab, r in runs if lab == label]
+        med[label] = {"us_per_step": statistics.median(
+            r["us_per_step"] for r in rs), "fleet_s": {
+            c: statistics.median(r["fleet_s"][c] for r in rs)
+            for c in rs[0]["fleet_s"]}}
+    log(f"[suite-ab] medians: {json.dumps(med)}; run_program us a step "
+        f"{100 * (med['this']['us_per_step'] / med['parent']['us_per_step'] - 1):+.1f} %"
+        + "".join(f"; fleet '{c}' {100 * (v / med['parent']['fleet_s'][c] - 1):+.1f} %"
+                  for c, v in med["this"]["fleet_s"].items()))
+    print(gpu_line(), flush=True)
+    print(json.dumps({"suite_ab": med, "runs": runs}), flush=True)
+    return 0
+
+
 def gpu_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -835,7 +1240,14 @@ def gpu_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv[:1] == ["--suite-time"]:
+        sys.path.insert(0, argv[1])
+        import torch
+        print(json.dumps(suite_time(torch.device("cuda", 0))), flush=True)
+        return 0
+    if argv[:1] == ["--suite-ab"]:
+        return suite_ab(argv[1])
     try:
         import torch
     except ImportError:
@@ -868,8 +1280,10 @@ def main() -> int:
             f"shared memory {smem} bytes")
 
     worst = check_kernels(dev)
+    check_step_kernels(dev)
     res = run_suite(dev)
-    kernels = time_kernels(dev, worst, res["launches"])
+    profile_steps(dev)
+    kernels = time_kernels(dev, worst, res["launches"], res["routes"])
 
     check_lm_kernels(dev)
     serve_reference(dev)
@@ -885,4 +1299,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -8,9 +8,11 @@ on the host in Python ints (:func:`sequence`, as the reference's
 ``blockc._simulate`` does), and the device runs only the data path, one
 instruction per step (:func:`make_step`): operand gather, the value,
 the masked register write-back, the predicate stacks and the STO
-scatter.  The whole instruction trace goes to the device once, before
-the loop, so on CUDA the step loop never waits for the card (no
-``.item()``, no ``.cpu()``, no host-to-device copy).
+scatter, with each FP and each DOT/SUM step one launch of a step
+kernel that does all of that in place on the register file.  The whole
+instruction trace goes to the device once, before the loop, so on CUDA
+the step loop never waits for the card (no ``.item()``, no ``.cpu()``,
+no host-to-device copy).
 
 One driver serves one core (:func:`run_program`) and a lock-step batch
 of cores (``repro_torch.fleet.engine.fleet_run``): the batch axis is
@@ -29,6 +31,8 @@ import numpy as np
 import torch
 
 from . import isa, semantics
+from ..kernels.dot_product import ops as dops, ref as dref
+from ..kernels.wavefront_alu import ops as wops, ref as wref
 from .assembler import ProgramImage
 from .config import EGPUConfig
 from .isa import Op, Typ
@@ -48,8 +52,12 @@ PROG_FIELDS = ("op", "typ", "rd", "ra", "rb", "imm", "tsc")
 _PAD = 64  # programs are padded to a multiple of this (the reference's grid)
 
 _IF_RANGE = range(int(Op.IF_EQ), int(Op.IF_NZ) + 1)
-_EXT0 = (int(Op.DOT), int(Op.SUM))
 _NOP = int(Op.NOP)
+
+#: the opcodes of the two step kernels, in each kernel's operation order
+FP_OPCODES = tuple(int(Op["F" + name.upper()]) for name in wref.OPS)
+EXT_OPCODES = tuple(int(Op[name.upper()]) for name in dref.EXT_OPS)
+_STEP_KERNEL_OPS = frozenset(FP_OPCODES + EXT_OPCODES)
 
 
 def tables_np(cfg: EGPUConfig) -> np.ndarray:
@@ -273,42 +281,85 @@ def _pick(on, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
                        new, old)
 
 
-def make_step(cfg: EGPUConfig, masks: torch.Tensor, tdx: list,
-              device: torch.device):
+def make_step(cfg: EGPUConfig, ds: DeviceState, masks: torch.Tensor,
+              tdx: list, trace: torch.Tensor):
     """Build the data path of one instruction step over a batch of cores.
 
-    ``masks`` is the ``(B, 16, T)`` TSC mask table (:func:`tsc_masks` per
-    core), ``tdx`` the cores' TDX grid widths.  Returns ``step(ds, tr,
-    ops, host_row)``: ``tr`` is this step's ``(B, 7)`` int64 trace rows
-    on the device (a core not executing has a NOP row), ``ops`` the
-    distinct opcodes executed this step (a Python tuple, NOPs left out)
-    and ``host_row`` the same row as Python ints when ``B == 1``.
-    The predicate mask is cached between steps and rebuilt only after a
-    step that changes the predicate stacks.
+    ``ds`` is the batch's device state, updated in place; ``masks`` the
+    ``(B, 16, T)`` TSC mask table (:func:`tsc_masks` per core); ``tdx``
+    the cores' TDX grid widths; ``trace`` the uploaded ``(steps, B, 7)``
+    int64 trace (a core not executing has a NOP row).  Returns
+    ``step(i, ops, host_row)`` for step ``i``: ``ops`` are the distinct
+    opcodes executed in it (a Python tuple, NOPs left out) and
+    ``host_row`` the same row as Python ints when ``B == 1``.  The
+    predicate mask is cached between steps and rebuilt only after a step
+    that changes the predicate stacks.
 
-    One core takes the row's fields from ``host_row``: its operands are
-    views of the register file and the value functions fold ``signed``
-    and ``imm`` as constants, which issues fewer ops a step than the
-    batch's gathers (about a quarter less wall time on the paper suite,
-    PERF.md).  Everything after operand fetch and before the register
-    write is shared; ``on(o)`` is ``None`` for one core, which executes
-    every op of ``ops``.
+    The FP opcodes and DOT/SUM run as the ``step`` routes of the
+    ``wavefront_alu`` and ``dot_product`` kernels: one launch a step for
+    every core of the batch, whatever FP opcodes the cores mix, reading
+    its operands from the register file and writing Rd in place.
+    Everything such a launch needs but the step's trace row and the
+    predicate mask is prepared here, once; on the CPU the kernels' plain
+    versions run.  The launch comes after the torch ops' register
+    write-back, which writes each core's own Rd column back (an FP or
+    DOT/SUM core's unchanged), and reads the predicate mask that was in
+    force when the step began.
+
+    Every other opcode runs as torch ops.  One core takes the row's
+    fields from ``host_row``: its operands are views of the register
+    file and the value functions fold ``signed`` and ``imm`` as
+    constants, which issues fewer ops a step than the batch's gathers
+    (about a quarter less wall time on the paper suite, PERF.md).
+    ``on(o)`` is ``None`` for one core, which executes every op of
+    ``ops``.
     """
     B, _, T = masks.shape
+    device = masks.device
     S = cfg.shared_words
     D = max(1, cfg.predicate_levels)
     tab = tables_np(cfg)
     writes_rd = tab[:, _TC_WRITES_RD].astype(bool)
     tid = torch.arange(T, dtype=torch.int32, device=device)
-    is_t0 = tid == 0
     bidx = torch.arange(B, device=device)
     single = B == 1
     tdx_t = torch.tensor(tdx, dtype=torch.int32, device=device)[:, None]
-    cache = {"pred": None}
+    cache = {"pred": None, "pred_ptr": 0}
+    plans: dict = {}
+    # the opcodes that torch ops run: those that change a register, shared
+    # memory or the predicate stacks and have no step kernel (the control
+    # opcodes have no device work at all)
+    torch_run = {o for o in range(isa.NUM_OPCODES)
+                 if (writes_rd[o] or o == Op.STO or o in _IF_RANGE
+                     or o in (Op.ELSE, Op.ENDIF))
+                 and o not in _STEP_KERNEL_OPS}
 
-    def step(ds: DeviceState, tr: torch.Tensor, ops: tuple, host_row=None):
-        if not ops:
-            return
+    if device.type == "cuda":
+        fp_launch = wops.fp_step_launcher(ds.regs, masks, FP_OPCODES)
+        ext_launch = dops.ext_step_launcher(ds.regs, masks, EXT_OPCODES)
+        if not trace.is_contiguous():
+            raise ValueError("the trace must be contiguous")
+        row0, row_bytes = trace.data_ptr(), B * 7 * trace.element_size()
+
+        def kernels(i, fp, ext, pred, pred_ptr):
+            row = row0 + i * row_bytes
+            if fp:
+                fp_launch(row, pred_ptr)
+            if ext:
+                ext_launch(row, pred_ptr)
+    else:
+        def kernels(i, fp, ext, pred, pred_ptr):
+            tr = trace[i]
+            if fp:
+                wops.fp_step(ds.regs, tr, masks, pred, FP_OPCODES)
+            if ext:
+                dops.ext_step(ds.regs, tr, masks, pred, EXT_OPCODES)
+
+    def set_pred(pred):
+        cache["pred"] = pred
+        cache["pred_ptr"] = 0 if pred is None else pred.data_ptr()
+
+    def torch_step(i, ops, host_row):
         if single:
             # views: one instruction writes one register column or shared
             # memory, and reads its operands before that write
@@ -317,6 +368,7 @@ def make_step(cfg: EGPUConfig, masks: torch.Tensor, tdx: list,
             tsc_mask = masks[:, tsc]
             signed, imm_v, tdx_v = typ == Typ.I32, imm, tdx[0]
         else:
+            tr = trace[i]
             vals = torch.gather(ds.regs, 2, tr[:, None, 2:5].expand(B, T, 3))
             rdv, rav, rbv = vals[..., 0], vals[..., 1], vals[..., 2]
             tsc_mask = masks[bidx, tr[:, 6]]
@@ -336,7 +388,7 @@ def make_step(cfg: EGPUConfig, masks: torch.Tensor, tdx: list,
         for o in ops:
             if not writes_rd[o]:
                 continue
-            wm = _gate(is_t0.expand_as(mask) if o in _EXT0 else mask, on(o))
+            wm = _gate(mask, on(o))
             val = semantics.build_spec(
                 dataclasses.replace(env, wmask=wm))[o][0]()
             col = torch.where(wm, val, col)
@@ -378,23 +430,36 @@ def make_step(cfg: EGPUConfig, masks: torch.Tensor, tdx: list,
                 pd = semantics.pred_pop(ds.pdepth, tsc_mask)
                 pdepth = _pick(on(int(Op.ENDIF)), pd, pdepth)
             ds.pstack, ds.pdepth = pstack, pdepth
-            cache["pred"] = semantics.pred_ok(pstack, pdepth, D)
+            set_pred(semantics.pred_ok(pstack, pdepth, D))
 
-    def reset_pred(ds: DeviceState, nontrivial: bool):
-        cache["pred"] = (semantics.pred_ok(ds.pstack, ds.pdepth, D)
-                         if nontrivial else None)
+    def step(i: int, ops: tuple, host_row=None):
+        plan = plans.get(ops)
+        if plan is None:
+            plan = plans[ops] = (tuple(o for o in ops if o in torch_run),
+                                 any(o in FP_OPCODES for o in ops),
+                                 any(o in EXT_OPCODES for o in ops))
+        torch_ops, fp, ext = plan
+        pred, pred_ptr = cache["pred"], cache["pred_ptr"]
+        if torch_ops:
+            torch_step(i, torch_ops, host_row)
+        if fp or ext:
+            kernels(i, fp, ext, pred, pred_ptr)
+
+    def reset_pred(nontrivial: bool):
+        set_pred(semantics.pred_ok(ds.pstack, ds.pdepth, D)
+                 if nontrivial else None)
 
     step.reset_pred = reset_pred
     return step
 
 
-def run_steps(step, ds: DeviceState, trace_dev: torch.Tensor,
-              step_ops: list, host_rows: list) -> None:
-    """The device loop: one data-path step per trace row.  Everything it
-    reads is on the device or in host lists already, so on CUDA it never
-    waits for the card."""
-    for i in range(len(step_ops)):
-        step(ds, trace_dev[i], step_ops[i], host_rows[i])
+def run_steps(step, step_ops: list, host_rows: list) -> None:
+    """The device loop: one data-path step per trace row that executes
+    anything.  Everything it reads is on the device or in host lists
+    already, so on CUDA it never waits for the card."""
+    for i, ops in enumerate(step_ops):
+        if ops:
+            step(i, ops, host_rows[i])
 
 
 def run_batch(cfg: EGPUConfig, packed: list, leaves: list, prog_len: int,
@@ -427,11 +492,11 @@ def run_batch(cfg: EGPUConfig, packed: list, leaves: list, prog_len: int,
         pdepth=torch.from_numpy(stack("pdepth")).to(device))
     masks = torch.from_numpy(np.stack(
         [tsc_masks(cfg, c.threads_active) for c in cores])).to(device)
-    step = make_step(cfg, masks, [c.tdx_dim for c in cores], device)
-    step.reset_pred(ds, bool(stack("pdepth").any()))
     trace_dev = torch.from_numpy(trace).to(device)
+    step = make_step(cfg, ds, masks, [c.tdx_dim for c in cores], trace_dev)
+    step.reset_pred(bool(stack("pdepth").any()))
     host_rows = trace[:, 0].tolist() if B == 1 else [None] * n
-    run_steps(step, ds, trace_dev, step_ops, host_rows)
+    run_steps(step, step_ops, host_rows)
 
     host = [c.leaves() for c in cores]
     out = {k: torch.from_numpy(np.stack([h[k] for h in host])).to(device)

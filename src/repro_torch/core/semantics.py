@@ -9,9 +9,11 @@ core ``(T,)`` and a fleet ``(B, T)``.
 Registers hold 32-bit patterns in **int32**: PyTorch has no uint32
 arithmetic, so unsigned compare, shift, max and min are emulated (the
 sign bit flipped for compares, a mask after arithmetic shifts).  The
-FP ops FADD/FSUB/FMUL/FMAX/FMIN go through the ``wavefront_alu`` kernel
-wrapper and DOT/SUM through the ``dot_product`` wrapper, which carry the
-reference's x86 float32 rules (:mod:`repro_torch.kernels.fp32`).
+value functions of FADD/FSUB/FMUL/FMAX/FMIN go through the
+``wavefront_alu`` kernel's ``tile`` route and DOT/SUM through
+``dot_product``'s, which carry the reference's x86 float32 rules
+(:mod:`repro_torch.kernels.fp32`); the executor runs those opcodes
+through the kernels' ``step`` routes instead, one launch a step.
 """
 from __future__ import annotations
 
@@ -102,22 +104,8 @@ def _sel(c, a, b):
     return torch.where(c, a, b)
 
 
-def det_sum(v: torch.Tensor, num_sps: int = 16) -> torch.Tensor:
-    """The reference's deterministic thread-space reduction on float32
-    bit patterns ``(..., T)`` -> ``(...)``: sequential over wavefronts,
-    pairwise tree within the 16-lane wavefront, x86 float rules.  The
-    main path runs the same order in the ``dot_product`` kernel; this
-    plain form is what the kernel is checked against."""
-    T = v.shape[-1]
-    m = v.reshape(v.shape[:-1] + (T // num_sps, num_sps))
-    acc = m[..., 0, :]
-    for i in range(1, T // num_sps):
-        acc = fp32.add(acc, m[..., i, :])
-    s = num_sps // 2
-    while s >= 1:
-        acc = fp32.add(acc[..., :s], acc[..., s:2 * s])
-        s //= 2
-    return acc[..., 0]
+#: the reference's deterministic thread-space reduction (DOT/SUM order)
+det_sum = fp32.det_sum
 
 
 # ---------------------------------------------------------------------------

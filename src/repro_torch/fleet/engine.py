@@ -8,9 +8,9 @@ one configuration and one padded program length.  A core whose program
 has ended executes NOPs from then on, so its state freezes leaf for
 leaf and each core's result is bit-identical to what ``run_program``
 gives for that job alone.  The STOs of one step are applied as one
-flattened scatter (:func:`repro_torch.core.semantics.store`); in a step
-where cores run different FP opcodes the wavefront ALU is launched once
-for each, the tiles of the other cores inactive.
+flattened scatter (:func:`repro_torch.core.semantics.store`); the FP
+and the DOT/SUM ops of a step are one launch each of their step kernel,
+whatever opcodes the cores mix.
 """
 from __future__ import annotations
 

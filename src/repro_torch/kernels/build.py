@@ -30,6 +30,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,7 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT_FLAGS = ("-ftz=true", "-fmad=false")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_F = ctypes.c_float
+_F, _ULL = ctypes.c_float, ctypes.c_ulonglong
+#: the eGPU step entries: regs, trace row, masks, pred, packed opcodes,
+#: B, T, R, stream
+_STEP = [_P] * 4 + [_ULL] + [_LL] * 3 + [_P]
 #: the LM kernels' flags: none beyond NVCC_FLAGS; TMA's encoder comes from
 #: cudaGetDriverEntryPoint at run time, not from linking -lcuda
 TMA_FLAGS = ()
@@ -45,9 +50,11 @@ _GEMM = [_P] * 4 + [_LL] * 4
 _ATTN = [_P] * 5 + [_LL] * 6
 #: kernel name -> ({C entry point: its ctypes argtypes}, extra nvcc flags)
 _SIGNATURES = {
-    "wavefront_alu": ({"egpu_wavefront_alu": [_P] * 5 + [_LL] * 2 + [_I, _P]},
+    "wavefront_alu": ({"egpu_wavefront_alu": [_P] * 5 + [_LL] * 2 + [_I, _P],
+                       "egpu_fp_step": _STEP},
                       EXACT_FLAGS),
-    "dot_product": ({"egpu_dot_product": [_P] * 4 + [_LL] * 3 + [_I, _P]},
+    "dot_product": ({"egpu_dot_product": [_P] * 4 + [_LL] * 3 + [_I, _P],
+                     "egpu_ext_step": _STEP},
                     EXACT_FLAGS),
     "wavefront_matmul": ({"lm_wavefront_matmul": _GEMM + [_I, _P],
                           "lm_wavefront_matmul_small_m": _GEMM + [_I, _P],
@@ -139,11 +146,24 @@ def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
         return dict(_libs)
 
 
+_entries: dict = {}
+
+
 def entry(name: str, sym: str | None = None):
     """The C entry point ``sym`` of kernel ``name`` (default: its first),
-    building the library if needed."""
-    lib = _libs.get(name) or build_all((name,))[name]
-    return getattr(lib, sym or next(iter(_SIGNATURES[name][0])))
+    building the library if needed; looked up once."""
+    fn = _entries.get((name, sym))
+    if fn is None:
+        lib = _libs.get(name) or build_all((name,))[name]
+        fn = _entries[name, sym] = getattr(
+            lib, sym or next(iter(_SIGNATURES[name][0])))
+    return fn
+
+
+def stream(device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (a CUDA graph's capture stream while one is captured), by one call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

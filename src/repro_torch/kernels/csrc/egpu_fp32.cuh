@@ -34,12 +34,13 @@ __device__ __forceinline__ uint32_t daz(uint32_t x) {
 }
 
 // x86 NaN selection: the first NaN operand, quieted; else the default
-// NaN where the operation was invalid (inf - inf, 0 * inf).
+// NaN where the operation was invalid (inf - inf, 0 * inf).  Written as
+// selects, not branches, so that a caller's unrolled loop stays one
+// block of straight-line code that the compiler can schedule across.
 __device__ __forceinline__ uint32_t nan_rules(uint32_t a, uint32_t b, uint32_t r) {
-  if (is_nan(a)) return a | kQuiet;
-  if (is_nan(b)) return b | kQuiet;
-  if (is_nan(r)) return kDefaultNaN;
-  return r;
+  r = is_nan(r) ? kDefaultNaN : r;
+  r = is_nan(b) ? (b | kQuiet) : r;
+  return is_nan(a) ? (a | kQuiet) : r;
 }
 
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
@@ -61,14 +62,9 @@ __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   double p = __dmul_rn((double)as_f(da), (double)as_f(db));
   double m = fabs(p);
   uint32_t sign = (da ^ db) & kSign;
-  uint32_t r;
-  if (m < 0x1p-126 - 0x1p-151) {
-    r = sign;                               // tiny: flushed to a signed zero
-  } else if (m < 0x1p-126) {
-    r = sign | 0x00800000u;                 // rounds up to the least normal
-  } else {
-    r = as_u(__double2float_rn(p));
-  }
+  uint32_t r = as_u(__double2float_rn(p));
+  r = m < 0x1p-126 ? (sign | 0x00800000u) : r;    // rounds up to the least normal
+  r = m < 0x1p-126 - 0x1p-151 ? sign : r;         // tiny: flushed to a signed zero
   return nan_rules(a, b, r);
 }
 
@@ -104,5 +100,25 @@ __device__ __forceinline__ uint32_t apply(int op, uint32_t a, uint32_t b) {
     default: return minimum(a, b);
   }
 }
+
+// The step entries (egpu_fp_step, egpu_ext_step) read each core's eGPU
+// opcode from its trace row and serve it if it is one of theirs: byte k
+// of `opcodes` is the eGPU opcode of the entry's operation k (the Python
+// wrappers pack it, repro_torch/kernels/egpu_step.py).  Returns k, or -1
+// for an opcode the entry does not serve.
+__device__ __forceinline__ int step_op(int64_t opcode, unsigned long long opcodes,
+                                       int n) {
+  for (int k = 0; k < n; ++k) {
+    if (opcode == (int64_t)((opcodes >> (8 * k)) & 0xffu)) return k;
+  }
+  return -1;
+}
+
+// A trace row's columns (repro_torch/core/executor.py PROG_FIELDS).
+enum RowField : int { kRowOp = 0, kRowRd = 2, kRowRa = 3, kRowRb = 4,
+                      kRowTsc = 6, kRowLen = 7 };
+
+// The TSC mask table holds one (16, T) plane a core.
+constexpr int kTscCodes = 16;
 
 }  // namespace egpu

@@ -185,6 +185,23 @@ def compare(a, b, op: str):
             "gt": fa > fb, "ge": fa >= fb}[op]
 
 
+def det_sum(v: torch.Tensor, num_sps: int = 16) -> torch.Tensor:
+    """The reference's deterministic thread-space reduction on float32
+    bit patterns ``(..., T)`` -> ``(...)``: sequential over wavefronts,
+    pairwise tree within the 16-lane wavefront, x86 float rules (the
+    order of DOT/SUM, which the ``dot_product`` kernels keep)."""
+    T = v.shape[-1]
+    m = v.reshape(v.shape[:-1] + (T // num_sps, num_sps))
+    acc = m[..., 0, :]
+    for i in range(1, T // num_sps):
+        acc = add(acc, m[..., i, :])
+    s = num_sps // 2
+    while s >= 1:
+        acc = add(acc[..., :s], acc[..., s:2 * s])
+        s //= 2
+    return acc[..., 0]
+
+
 #: the wavefront ALU's five operations, by the reference kernel's names
 BINARY = {"add": add, "sub": sub, "mul": mul, "max": maximum,
           "min": minimum}

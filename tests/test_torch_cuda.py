@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 import _torch_port as tp  # noqa: E402
 from repro_torch import programs as tprog  # noqa: E402
-from repro_torch.core import EGPUConfig, executor, run_program  # noqa: E402
+from repro_torch.core import Asm, EGPUConfig, Op, executor, run_program  # noqa: E402
 from repro_torch.core.machine import state_to_numpy  # noqa: E402
 from repro_torch.fleet import fleet_run, unstack_state  # noqa: E402
 from repro_torch.kernels.dot_product import ops as dops, ref as dref  # noqa: E402
@@ -113,6 +113,117 @@ def test_step_loop_never_syncs(dev, monkeypatch):
     fleet_run([b.image for b in jobs.values()],
               init_kw=[dict(shared_init=b.shared_init, tdx_dim=b.tdx_dim)
                        for b in jobs.values()], device=dev)
+
+
+# --- the eGPU step kernels (the main path's FP and DOT/SUM steps) ------------
+
+def _step_args(rng, batch, with_pred, threads=512, nregs=32):
+    """A register file of special values and one trace row a core, the
+    cores' opcodes mixing FP, DOT, SUM and others, rd/ra/rb often equal."""
+    regs = _special(rng, (batch, threads, nregs)).view(torch.int32)
+    pool = [int(o) for o in executor.FP_OPCODES + executor.EXT_OPCODES] \
+        + [int(Op.ADD), int(Op.LOD), int(Op.NOP)]
+    rows = np.zeros((batch, 7), np.int64)
+    rows[:, 0] = rng.choice(pool, batch)
+    rows[:, 2:5] = rng.integers(0, 4, (batch, 3))
+    rows[:, 6] = rng.integers(0, 16, batch)
+    masks = torch.from_numpy(rng.random((batch, 16, threads)) < 0.7)
+    pred = torch.from_numpy(rng.random((batch, threads)) < 0.6) \
+        if with_pred else None
+    return regs, torch.from_numpy(rows), masks, pred
+
+
+@pytest.mark.parametrize("with_pred", [False, True], ids=["nopred", "pred"])
+@pytest.mark.parametrize("batch", [1, 4, 18])
+def test_step_kernels_equal_plain(dev, batch, with_pred):
+    """Each step kernel, one launch, equals its plain version bit for bit
+    at the main path's shapes (512 threads, 32 registers)."""
+    rng = np.random.default_rng(batch + 10 * with_pred)
+    regs, rows, masks, pred = _step_args(rng, batch, with_pred)
+    if batch == 1:
+        rows[0, 0] = int(Op.FMUL)
+    to = lambda x: None if x is None else x.to(dev)
+    for run, ref, counter, opcodes in (
+            (wops.fp_step, wref.fp_step_ref, wops.wavefront_alu,
+             executor.FP_OPCODES),
+            (dops.ext_step, dref.ext_step_ref, dops.dot_product,
+             executor.EXT_OPCODES)):
+        got, exp = regs.clone().to(dev), regs.clone().to(dev)
+        before = dict(counter.by_route)
+        run(got, to(rows), to(masks), to(pred), opcodes)
+        assert counter.by_route == {"step": before["step"] + 1,
+                                    "tile": before["tile"]}
+        ref(exp, to(rows), to(masks), to(pred), opcodes)
+        assert torch.equal(got, exp), run.__name__
+    # a DOT on every core: every core's thread 0 written
+    rows[:, 0] = int(Op.DOT)
+    got, exp = regs.clone().to(dev), regs.clone().to(dev)
+    dops.ext_step(got, to(rows), to(masks), to(pred), executor.EXT_OPCODES)
+    dref.ext_step_ref(exp, to(rows), to(masks), to(pred), executor.EXT_OPCODES)
+    assert torch.equal(got, exp)
+
+
+def _mixed_programs(cfg, n=9):
+    """Core k runs the same instructions rotated by k, so each step mixes
+    FP opcodes, DOT, SUM, integer, LOD, STO and NOP across the cores."""
+    slots = (lambda a: a.fadd(4, 2, 3), lambda a: a.fmul(2, 2, 3),
+             lambda a: a.fmin(3, 2, 3), lambda a: a.dot(5, 2, 3),
+             lambda a: a.sum_(6, 3), lambda a: a.add(7, 1, 1),
+             lambda a: a.lod(8, 1, 16), lambda a: a.sto(4, 1, 64),
+             lambda a: a.nop())
+    out = []
+    for k in range(n):
+        a = Asm(cfg)
+        a.tdx(1)
+        a.lod(2, 1, 0)
+        a.lod(3, 1, 32)
+        for j in range(len(slots)):
+            slots[(j + k) % len(slots)](a)
+        a.stop()
+        out.append(a.assemble(schedule_nops=False))
+    return out
+
+
+def test_fp_and_dot_steps_launch_once_each(dev, monkeypatch):
+    """On the main path an FP step and a DOT/SUM step each launch their
+    step kernel once, for one core and for a fleet step whose cores mix
+    every kind of op; the tile routes are not launched; no step syncs;
+    the leaves equal the port's CPU run."""
+    cfg = tp.config(EGPUConfig, "dp")
+    images = _mixed_programs(cfg)
+    rng = np.random.default_rng(5)
+    shared = [rng.standard_normal(96).astype(np.float32) for _ in images]
+    counters = (wops.wavefront_alu, dops.dot_product)
+    inner = executor.run_steps
+
+    def guarded(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(executor, "run_steps", guarded)
+    before = [dict(c.by_route) for c in counters]
+    got = state_to_numpy(run_program(images[0], shared_init=shared[0],
+                                     device=dev))
+    moved = [{r: c.by_route[r] - b[r] for r in b}
+             for c, b in zip(counters, before)]
+    assert moved == [{"step": 3, "tile": 0}, {"step": 2, "tile": 0}]
+    tp.assert_leaves_equal(state_to_numpy(run_program(
+        images[0], shared_init=shared[0], device="cpu")), got, "one core")
+    before = [dict(c.by_route) for c in counters]
+    kw = [dict(shared_init=x) for x in shared]
+    out = fleet_run(images, init_kw=kw, device=dev)
+    moved = [{r: c.by_route[r] - b[r] for r in b}
+             for c, b in zip(counters, before)]
+    # 9 rotated slots: a step holds FP iff one of its 9 cores runs one
+    assert moved == [{"step": 9, "tile": 0}, {"step": 9, "tile": 0}]
+    cpu = fleet_run(images, init_kw=kw, device="cpu")
+    for k in range(len(images)):
+        tp.assert_leaves_equal(state_to_numpy(unstack_state(cpu, k)),
+                               state_to_numpy(unstack_state(out, k)),
+                               f"fleet core {k}")
 
 
 # --- the LM kernels and the serving path --------------------------------------
