@@ -27,6 +27,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``torch.profiler``: kernels and torch ops a step and host µs a step,
    the main path's (one kernel, no torch op, or it fails) beside the
    previous composition's;
+   3b. the compiled tiers (``core/blockc.py``): every suite job through
+   ``run_compiled`` under ``blocks``, ``superblock`` and ``auto`` (the
+   card's tier policy), each block or superblock segment replayed as a
+   CUDA graph captured beforehand (``light_compile``), every leaf held
+   against the digests and each job's ``step``-route launches against
+   its ``run_program``'s in this call (the counters zeroed just before
+   and read just after; none on ``tile``); ``run_light`` against
+   ``run``; one lock-step ``run_batch`` of ``matmul_64_dp`` over four
+   shared images and four TDX grids against ``run_program`` on the card
+   (row 0 against the digests) and ``run_batch_light``; prints µs a
+   simulated step by tier and job class (medians of runs, and the
+   device time summed over the graphs a run replays) beside
+   ``run_program``'s timed the same way, graph replays a run and
+   capture seconds;
 4. time each eGPU kernel four ways, device time (a CUDA graph of
    launches) and eager: the ``step`` route as ``run_program`` issues
    it, the ``tile`` route, the previous composition and one PyTorch
@@ -310,13 +324,15 @@ def run_suite(dev) -> dict:
     for f in (wavefront_alu, dot_product):
         f.launches = 0
         f.by_route = dict.fromkeys(f.by_route, 0)
-    cuda_leaves, rows = {}, []
+    cuda_leaves, rows, job_launches = {}, [], {}
     t_main = time.perf_counter()
     for b in jobs:
+        c0 = step_launches()
         t0 = time.perf_counter()
         st = run_program(b.image, shared_init=b.shared_init,
                          tdx_dim=b.tdx_dim, device=dev)
         wall = time.perf_counter() - t0
+        job_launches[b.name] = minus(step_launches(), c0)
         leaves, err = held(b, st, "run_program")
         cuda_leaves[b.name] = leaves
         rows.append((b.name, int(st.steps), int(st.cycles), wall, err))
@@ -369,7 +385,247 @@ def run_suite(dev) -> dict:
     log(f"[suite] every job's CUDA leaves equal its CPU run's "
         f"({time.perf_counter() - t0:.1f}s on the CPU)")
     return {"launches": launches, "routes": routes, "jobs": rows,
+            "job_launches": job_launches,
             "steps": sum(r[1] for r in rows), "wall_s": main_wall}
+
+
+def step_launches() -> dict:
+    """The eGPU kernels' ``step``-route launch counts, by kernel."""
+    return {k: f.by_route["step"] for k, f in egpu_counters().items()}
+
+
+def minus(a: dict, b: dict) -> dict:
+    return {k: a[k] - b[k] for k in a}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the compiled tiers (core/blockc.py), units replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: job classes of the compiled-tier report, by program name prefix
+TIER_CLASSES = {"matmul": ("matmul",), "bitonic/fft": ("bitonic", "fft"),
+                "reductions/transposes": ("reduction", "transpose")}
+
+
+def job_class(name: str) -> str:
+    return next(c for c, pre in TIER_CLASSES.items()
+                if name.startswith(pre))
+
+
+TIER_REPS = 5
+
+
+def median_s(fn, reps=TIER_REPS) -> float:
+    """Host seconds of ``fn()`` (which ends in a synchronise), the median
+    of ``reps`` calls."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def unit_device_ms(cp, dev, reps=20) -> float:
+    """Device ms of one run of a compiled program's plan at batch 1: each
+    distinct unit's graph replayed ``reps`` times back to back between
+    CUDA events, summed over the run's replay order (so the host's issue
+    between replays is left out wherever the card is the slower)."""
+    import torch
+    plan = cp._plans[dev, 1]
+    per = {}
+    for u in plan._units.values():
+        u.run()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            u.run()
+        e1.record()
+        e1.synchronize()
+        per[id(u)] = e0.elapsed_time(e1) / reps
+    return sum(per[id(u)] for u in plan.order)
+
+
+def run_tiers(dev, interp: dict) -> dict:
+    """The 22 suite jobs through ``run_compiled`` under ``blocks``,
+    ``superblock`` and ``auto`` (``auto`` under the card's tier policy,
+    ``default_policy_for_device``), every leaf held against the
+    reference's digests; each job's ``step``-route launches equal to its
+    ``run_program``'s in this call (``interp``), none on ``tile``.  The
+    graphs are captured first (``light_compile``; the capture is not
+    the run); the eGPU kernels' counters are zeroed just before the runs
+    and read just after.  Then the light path against the full path, and
+    one lock-step ``run_batch`` of a matmul job over four shared images
+    with four TDX grids against ``run_program`` on the card.  Prints µs
+    per simulated step by tier and job class (``run`` and ``run_light``,
+    each the median of :data:`TIER_REPS` runs, and the device time,
+    :func:`unit_device_ms`) beside ``run_program``'s (the median of 3
+    runs, timed in the same place), graph replays a run and capture
+    seconds."""
+    import torch
+    from repro_torch import programs
+    from repro_torch.core import (benchmark_config, compile_program,
+                                  run_compiled, run_program)
+    from repro_torch.core.blockc import default_policy_for_device
+    from repro_torch.core.machine import state_to_numpy
+    from repro_torch.fleet import unstack_state
+    from repro_torch.programs import suite
+
+    digests = suite.load_digests()
+    jobs = suite.build_suite(programs, benchmark_config)
+    policy = default_policy_for_device(dev)
+    modes = {"blocks": None, "superblock": None, "auto": policy}
+    kw = lambda b: dict(shared_init=b.shared_init, tdx_dim=b.tdx_dim)
+
+    def held(b, st, where):
+        got = suite.leaf_digests(state_to_numpy(st))
+        bad = [k for k, v in digests[b.name]["leaves"].items() if got[k] != v]
+        if bad:
+            raise AssertionError(f"{where} {b.name}: leaves {bad} differ "
+                                 "from the JAX reference's digests")
+
+    cps, capture = {}, {}
+    for mode, pol in modes.items():
+        for b in jobs:
+            cp = compile_program(b.image, mode=mode, policy=pol)
+            cps[mode, b.name] = cp
+            capture[mode, b.name] = cp.light_compile(
+                np.zeros(cp.cfg.shared_words, np.uint32), b.tdx_dim, dev)
+    counters = egpu_counters()
+    for f in counters.values():
+        f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
+    rows, runs = [], {}
+    for mode, pol in modes.items():
+        for b in jobs:
+            c0 = step_launches()
+            st = run_compiled(b.image, fallback=False, mode=mode, policy=pol,
+                              device=dev, **kw(b))
+            got = minus(step_launches(), c0)
+            held(b, st, f"run_compiled[{mode}]")
+            if got != interp["job_launches"][b.name]:
+                raise AssertionError(
+                    f"{mode} {b.name}: step launches {got}, run_program's "
+                    f"{interp['job_launches'][b.name]}")
+            cp = cps[mode, b.name]
+            gs = cp.graph_stats(dev)
+            runs[mode, b.name] = st
+            rows.append({"mode": mode, "tier": cp.mode, "job": b.name,
+                         "steps": int(st.steps), "replays": gs["replays"],
+                         "graphs": gs["graphs"],
+                         "capture_s": capture[mode, b.name]})
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    routes = {k: dict(f.by_route) for k, f in counters.items()}
+    log(f"[tiers] {len(rows)} runs ({len(jobs)} jobs x blocks, superblock, "
+        "auto) "
+        f"match the digests; kernel launches {launches}, by route {routes}; "
+        "each job's step launches equal its run_program's")
+    for k, v in routes.items():
+        if v["step"] <= 0 or v["tile"] or v["step"] != launches[k]:
+            raise AssertionError(f"{k}: the compiled tiers' launches by "
+                                 f"route {v}, expected all on 'step'")
+
+    for (mode, name), st in runs.items():
+        b = next(j for j in jobs if j.name == name)
+        sh, cyc, halted = cps[mode, name].run_light(device=dev, **kw(b))
+        if not (torch.equal(sh, st.shared) and cyc == int(st.cycles)
+                and halted == bool(st.halted)):
+            raise AssertionError(f"{mode} {name}: run_light differs from run")
+    log(f"[tiers] run_light's (shared, cycles, halted) equal run's for all "
+        f"{len(runs)} runs")
+
+    # timing, after the checked runs: the median of TIER_REPS runs each
+    # (one run of a short job is 1-2 ms, where the host's jitter shows)
+    rp = {b.name: median_s(lambda b=b: run_program(b.image, device=dev,
+                                                    **kw(b)), 3)
+          for b in jobs}
+    for r in rows:
+        b = next(j for j in jobs if j.name == r["job"])
+        cp, pol = cps[r["mode"], r["job"]], modes[r["mode"]]
+        r["wall_s"] = median_s(lambda: run_compiled(
+            b.image, fallback=False, mode=r["mode"], policy=pol, device=dev,
+            **kw(b)))
+        r["light_s"] = median_s(lambda: cp.run_light(device=dev, **kw(b)))
+        r["device_ms"] = unit_device_ms(cp, dev)
+
+    b = next(j for j in jobs if j.name == "matmul_64_dp")
+    rng = np.random.default_rng(15)
+    n = np.asarray(b.shared_init).size
+    inits = [b.shared_init] + [rng.standard_normal(n).astype(np.float32)
+                               for _ in range(3)]
+    tdx = [b.tdx_dim, 8, 16, 32]
+    cp = compile_program(b.image, policy=policy, batch_hint=len(inits))
+    out = cp.run_batch(inits, tdx, device=dev)
+    for i, (s0, d) in enumerate(zip(inits, tdx)):
+        ref = state_to_numpy(run_program(b.image, shared_init=s0, tdx_dim=d,
+                                         device=dev))
+        got = state_to_numpy(unstack_state(out, i))
+        bad = [k for k in ref if not np.array_equal(ref[k], got[k])]
+        if bad:
+            raise AssertionError(f"run_batch row {i}: leaves {bad} differ "
+                                 "from run_program's")
+    held(b, unstack_state(out, 0), "run_batch row 0")
+    lsh, lcyc, lhalt = cp.run_batch_light(inits, tdx, device=dev)
+    if not (torch.equal(lsh, out.shared) and torch.equal(lcyc, out.cycles)
+            and torch.equal(lhalt, out.halted)):
+        raise AssertionError("run_batch_light differs from run_batch")
+    log(f"[tiers] run_batch {b.name} on the {cp.mode} tier, 4 cores, tdx "
+        f"{tdx}: every core's leaves equal run_program's on the card, row 0 "
+        "the digests; run_batch_light equal")
+
+    summary = {}
+    for mode in modes:
+        for cls in TIER_CLASSES:
+            rs = [r for r in rows if r["mode"] == mode
+                  and job_class(r["job"]) == cls]
+            steps = sum(r["steps"] for r in rs)
+            rp_wall = sum(rp[r["job"]] for r in rs)
+            summary[mode, cls] = {
+                "us_per_step": 1e6 * sum(r["wall_s"] for r in rs) / steps,
+                "light_us_per_step": 1e6 * sum(r["light_s"] for r in rs)
+                / steps,
+                "device_us_per_step": 1e3 * sum(r["device_ms"] for r in rs)
+                / steps,
+                "run_program_us_per_step": 1e6 * rp_wall / steps,
+                "replays": sum(r["replays"] for r in rs),
+                "graphs": sum(r["graphs"] for r in rs),
+                "capture_s": sum(r["capture_s"] for r in rs),
+                "steps": steps, "tiers": sorted({r["tier"] for r in rs})}
+            v = summary[mode, cls]
+            log(f"[tiers] {mode:10s} {cls:22s} {v['us_per_step']:8.2f} us a "
+                f"step (run_light {v['light_us_per_step']:.2f}, device "
+                f"{v['device_us_per_step']:.2f}; run_program "
+                f"{v['run_program_us_per_step']:.2f}); "
+                f"{v['replays']} graph replays a run over {v['steps']} "
+                f"steps, {v['graphs']} graphs captured in "
+                f"{v['capture_s']:.3f}s; tiers {v['tiers']}")
+    for mode in modes:
+        rs = [r for r in rows if r["mode"] == mode]
+        steps = sum(r["steps"] for r in rs)
+        us = 1e6 * sum(r["wall_s"] for r in rs) / steps
+        light = 1e6 * sum(r["light_s"] for r in rs) / steps
+        dev_us = 1e3 * sum(r["device_ms"] for r in rs) / steps
+        rp_us = 1e6 * sum(rp[r["job"]] for r in rs) / steps
+        summary[mode, "suite"] = {"us_per_step": us,
+                                  "light_us_per_step": light,
+                                  "device_us_per_step": dev_us,
+                                  "run_program_us_per_step": rp_us}
+        log(f"[tiers] {mode}: {us:.2f} us a step over the suite (run_light "
+            f"{light:.2f}, device {dev_us:.2f}; run_program {rp_us:.2f}); "
+            f"{sum(r['replays'] for r in rs)} replays, capture "
+            f"{sum(r['capture_s'] for r in rs):.3f}s")
+    for r in rows:
+        log(f"[tiers-job] {r['mode']} {r['job']} ({r['tier']}): "
+            f"{r['steps']} steps, {r['replays']} replays, {r['graphs']} "
+            f"graphs, capture {r['capture_s']:.4f}s, run "
+            f"{1e6 * r['wall_s'] / r['steps']:.2f} us a step (run_light "
+            f"{1e6 * r['light_s'] / r['steps']:.2f}, device "
+            f"{1e3 * r['device_ms'] / r['steps']:.2f}; run_program "
+            f"{1e6 * rp[r['job']] / r['steps']:.2f})")
+    return {"launches": launches, "routes": routes,
+            "summary": {f"{m}/{c}": v for (m, c), v in summary.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1282,8 +1538,17 @@ def main(argv) -> int:
     worst = check_kernels(dev)
     check_step_kernels(dev)
     res = run_suite(dev)
+    tiers = run_tiers(dev, res)
     profile_steps(dev)
-    kernels = time_kernels(dev, worst, res["launches"], res["routes"])
+    # the main path's launches: the interpreter and fleet phase's and the
+    # compiled tiers' (each counted from 0 just before its own runs)
+    launches = {k: v + tiers["launches"][k] for k, v in res["launches"].items()}
+    routes = {k: {r: n + tiers["routes"][k][r] for r, n in v.items()}
+              for k, v in res["routes"].items()}
+    kernels = time_kernels(dev, worst, launches, routes)
+    for k in kernels:
+        k["paths"] = {"run_program+fleet_run": res["launches"][k["name"]],
+                      "compiled_tiers": tiers["launches"][k["name"]]}
 
     check_lm_kernels(dev)
     serve_reference(dev)

@@ -1,4 +1,5 @@
-"""eGPU core on PyTorch: the port of ``repro.core`` (interpreter tier)."""
+"""eGPU core on PyTorch: the port of ``repro.core`` (the interpreter, the
+blocks and the superblock tiers)."""
 from .config import (EGPUConfig, CostParams, table4_configs, table5_configs,
                      benchmark_config)
 from .isa import (Op, Typ, Instr, OpClass, encode_word, decode_word, iw_bits,
@@ -8,6 +9,8 @@ from .machine import (MachineState, init_state, shared_as_f32, shared_as_u32,
                       shared_as_i32, profile, state_from_numpy,
                       state_to_numpy)
 from .executor import make_step, pad_image, run_program
+from .blockc import (DEFAULT_TIER_POLICY, BlockCompileError, CompiledProgram,
+                     TierPolicy, compile_program, run_compiled)
 from . import cost, semantics
 
 __all__ = [
@@ -17,5 +20,7 @@ __all__ = [
     "PERSONALITIES", "Asm", "ProgramImage", "schedule", "MachineState",
     "init_state", "shared_as_f32", "shared_as_u32", "shared_as_i32",
     "profile", "state_from_numpy", "state_to_numpy", "run_program",
-    "make_step", "pad_image", "cost", "semantics",
+    "make_step", "pad_image", "cost", "semantics", "BlockCompileError",
+    "CompiledProgram", "compile_program", "run_compiled", "TierPolicy",
+    "DEFAULT_TIER_POLICY",
 ]

@@ -1,4 +1,5 @@
-"""The batched fleet on PyTorch: the port of ``repro.fleet.engine``."""
-from .engine import fleet_run, stack_states, unstack_state
+"""The batched fleet on PyTorch: the port of ``repro.fleet.engine``
+(``fleet_run`` and the compiled tier's ``ResidencyCache``)."""
+from .engine import ResidencyCache, fleet_run, stack_states, unstack_state
 
-__all__ = ["fleet_run", "stack_states", "unstack_state"]
+__all__ = ["ResidencyCache", "fleet_run", "stack_states", "unstack_state"]

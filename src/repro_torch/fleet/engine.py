@@ -11,8 +11,15 @@ gives for that job alone.  The STOs of one step are applied as one
 flattened scatter (:func:`repro_torch.core.semantics.store`); the FP
 and the DOT/SUM ops of a step are one launch each of their step kernel,
 whatever opcodes the cores mix.
+
+:class:`ResidencyCache` keeps the compiled tier's batch inputs resident
+on the card across drains (the port of ``repro.fleet.engine.
+ResidencyCache``).
 """
 from __future__ import annotations
+
+import weakref
+from collections import OrderedDict
 
 import torch
 
@@ -21,6 +28,64 @@ from ..core.executor import pad_image, padded_length, run_batch
 from ..core.machine import (MachineState, init_numpy, resolve_device,
                             state_to_numpy)
 from ..obs import trace as obs_trace
+
+
+class ResidencyCache:
+    """Device-resident batch inputs for the compiled lock-step tier.
+
+    A drain of N same-program jobs moves one ``(N, S)`` shared-memory
+    image (plus the TDX grid vector) host -> device before the compiled
+    light path runs.  Serving workloads drain the *same* programs over
+    the same inputs repeatedly, so this cache keeps the already-moved
+    device tensors resident across drains: a repeat drain whose key —
+    which embeds a content digest of the batch — matches an entry
+    replays the resident tensors and pays **zero host -> device
+    transfer**.  That is only sound because the compiled light path
+    (:meth:`repro_torch.core.blockc.CompiledProgram.run_light_dev`)
+    copies its inputs into its own buffers and never consumes them.
+
+    Entries are LRU-bounded and **invalidated with the compile cache**:
+    each entry holds a weak reference to the :class:`CompiledProgram` it
+    was built against, and a lookup whose compiled program is no longer
+    that exact object (evicted and recompiled, or garbage-collected)
+    rebuilds rather than replays — the compiled program's identity is
+    the invalidation token, so the two caches cannot drift apart.
+    """
+
+    def __init__(self, max_entries: int = 32):
+        if max_entries < 1:
+            raise ValueError("max_entries must be >= 1")
+        self._max = max_entries
+        self._entries: OrderedDict = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every resident entry (a later lookup just rebuilds and
+        re-transfers — an eviction is always a miss, never an error)."""
+        self._entries.clear()
+
+    def lookup(self, key, cp, build):
+        """Return ``(tensors, hit)``: the device-resident input tensors
+        for ``key`` (whose content identity the caller encodes in the
+        key itself) if the entry was built against this exact ``cp``;
+        otherwise call ``build()`` (which must return the device
+        tensors), cache, and return them."""
+        e = self._entries.get(key)
+        if e is not None and e["cp"]() is cp:
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return e["arrays"], True
+        arrays = build()
+        self._entries[key] = {"cp": weakref.ref(cp), "arrays": arrays}
+        self._entries.move_to_end(key)
+        while len(self._entries) > self._max:
+            self._entries.popitem(last=False)      # LRU eviction
+        self.misses += 1
+        return arrays, False
 
 
 def stack_states(states: list[MachineState]) -> MachineState:

@@ -472,3 +472,76 @@ def test_smoke_serve_on_cuda_holds_against_reference_file(dev):
     assert out["float32"]["tokens_checked"] == out["float32"]["tokens"]
     assert fops.flash_attention.launches > f0
     assert mops.wavefront_matmul.launches > m0
+
+
+# ---------------------------------------------------------------------------
+# The compiled tiers (core/blockc.py): units replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["blocks", "superblock", "auto"])
+def test_compiled_tiers_on_cuda_equal_cpu(dev, mode):
+    """Every suite job of the dp and nopred configurations through the
+    graph-replayed tiers equals the CPU run leaf for leaf; the graphs'
+    step launches equal the card's ``run_program``'s, none on ``tile``,
+    and a run replays one graph per unit of the plan's order."""
+    from repro_torch.core import compile_program, run_compiled
+    for name in ("dp", "nopred"):
+        for b in tp.suite(tprog, tp.config(EGPUConfig, name)).values():
+            kw = dict(shared_init=b.shared_init, tdx_dim=b.tdx_dim)
+            exp = state_to_numpy(run_compiled(b.image, mode=mode,
+                                              device="cpu", **kw))
+            c0 = (wops.wavefront_alu.by_route["step"],
+                  dops.dot_product.by_route["step"])
+            run_program(b.image, device=dev, **kw)
+            c1 = (wops.wavefront_alu.by_route["step"],
+                  dops.dot_product.by_route["step"])
+            t0 = (wops.wavefront_alu.by_route["tile"],
+                  dops.dot_product.by_route["tile"])
+            cp = compile_program(b.image, mode=mode)
+            cp.light_compile(np.zeros(cp.cfg.shared_words, np.uint32),
+                             b.tdx_dim, dev)
+            c2 = (wops.wavefront_alu.by_route["step"],
+                  dops.dot_product.by_route["step"])
+            got = run_compiled(b.image, mode=mode, device=dev, **kw)
+            c3 = (wops.wavefront_alu.by_route["step"],
+                  dops.dot_product.by_route["step"])
+            tp.assert_leaves_equal(exp, state_to_numpy(got),
+                                   f"{name}/{b.name}/{mode}")
+            assert [y - x for x, y in zip(c2, c3)] \
+                == [y - x for x, y in zip(c0, c1)], b.name
+            assert t0 == (wops.wavefront_alu.by_route["tile"],
+                          dops.dot_product.by_route["tile"])
+            gs = cp.graph_stats(dev)
+            assert gs["replays"] == len(cp._unit_order()), b.name
+            assert gs["graphs"] == len(set(cp._unit_order())), b.name
+
+
+def test_compiled_batch_and_light_path_on_cuda(dev):
+    """A lock-step batch with four TDX grids equals the CPU batch; the
+    light path leaves its input unchanged, replays to the same result,
+    and returns a fresh tensor."""
+    from repro_torch.core import compile_program
+    b = tprog.build_matmul(tp.config(EGPUConfig, "dp"), 8)
+    rng = np.random.default_rng(5)
+    n = np.asarray(b.shared_init).size
+    inits = [b.shared_init] + [rng.standard_normal(n).astype(np.float32)
+                               for _ in range(3)]
+    tdx = [b.tdx_dim, 4, 16, 32]
+    for mode in ("blocks", "superblock"):
+        cp = compile_program(b.image, mode=mode)
+        exp = state_to_numpy(cp.run_batch(inits, tdx, device="cpu"))
+        got = state_to_numpy(cp.run_batch(inits, tdx, device=dev))
+        tp.assert_leaves_equal(exp, got, f"batch/{mode}")
+        sh = torch.from_numpy(np.stack([
+            np.pad(np.asarray(s, np.float32).view(np.int32),
+                   (0, cp.cfg.shared_words - n)) for s in inits])).to(dev)
+        keep = sh.clone()
+        td = torch.tensor(tdx, dtype=torch.int32, device=dev)
+        first = cp.run_light_dev(sh, td)[0]
+        second = cp.run_light_dev(sh, td)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(sh, keep)
+        assert torch.equal(first, second)
+        assert first.data_ptr() != second.data_ptr()
+        assert np.array_equal(first.cpu().numpy().view(np.uint32),
+                              exp["shared"])
