@@ -41,6 +41,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    device time summed over the graphs a run replays) beside
    ``run_program``'s timed the same way, graph replays a run and
    capture seconds;
+   3c. the fleet scheduler (``fleet/scheduler.py``, ``fleet/api.py``):
+   the 22 jobs, each submitted three times with its own inputs, through
+   ``Fleet`` on the card (one fleet for each of the suite's
+   configurations), every ``JobResult`` held against the digests: drain
+   A on the compiled tiers (no degraded unit), drain B the same
+   submissions replayed from resident inputs (a residency hit a
+   compiled batch, results equal to A's), drain C on the interpreter
+   (``use_compiler=False``, ``fleet_run`` batches of 32), drain D
+   ``drain_isolated`` under a seeded ``FaultPlan`` (one ``compile``
+   and one ``dispatch`` fault); every launch on the ``step`` route;
+   then every job through ``compile_program(optimize=True)`` under
+   ``blocks`` and ``superblock`` against
+   ``programs/reference_digests_optimized.json``; prints each drain's
+   wall, jobs/s, batches by tier, compile seconds, residency hits and
+   µs a job step beside phase 3b's tiers;
 4. time each eGPU kernel four ways, device time (a CUDA graph of
    launches) and eager: the ``step`` route as ``run_program`` issues
    it, the ``tile`` route, the previous composition and one PyTorch
@@ -626,6 +641,247 @@ def run_tiers(dev, interp: dict) -> dict:
             f"{1e6 * rp[r['job']] / r['steps']:.2f})")
     return {"launches": launches, "routes": routes,
             "summary": {f"{m}/{c}": v for (m, c), v in summary.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the fleet scheduler (fleet/scheduler.py, fleet/api.py)
+# ---------------------------------------------------------------------------
+
+#: each suite job is submitted this many times a drain, with its own inputs
+FLEET_COPIES = 3
+
+
+def result_held(table: dict, name: str, r, where: str) -> None:
+    """A ``JobResult`` against a digest file's entry: the shared words,
+    the Fig. 6 counters and the hazard violations by digest (the
+    reference's dtypes), cycles and steps by value."""
+    from repro_torch.programs import suite
+    want = table[name]
+    got = suite.leaf_digests({
+        "shared": r.shared, "stat_cycles": r.stat_cycles,
+        "stat_instrs": r.stat_instrs,
+        "hazard_violations": np.int32(r.hazard_violations)})
+    bad = [k for k, v in got.items() if v != want["leaves"][k]]
+    bad += [k for k in ("cycles", "steps") if getattr(r, k) != want[k]]
+    if r.shared.dtype != np.uint32:
+        bad.append("shared dtype")
+    if bad:
+        raise AssertionError(f"{where} {name}: {bad} differ from the JAX "
+                             "reference's digests")
+
+
+def fleet_stats(stats) -> dict:
+    reg = stats.registry
+    tiers = {t: int(reg.total("fleet_batches_total", tier=t))
+             for t in ("superblock", "blocks", "interp")}
+    return {"jobs": stats.jobs, "batches": stats.batches,
+            "batches_by_tier": tiers, "pad_slots": stats.pad_slots,
+            "compile_s": stats.compile_s, "wall_s": stats.wall_s,
+            "residency_hits": stats.residency_hits,
+            "residency_misses": stats.residency_misses,
+            "degraded_units": stats.degraded_units,
+            "bisections": stats.bisections,
+            "salvaged_jobs": stats.salvaged_jobs}
+
+
+def stats_minus(a: dict, b: dict) -> dict:
+    out = {}
+    for k, v in a.items():
+        out[k] = stats_minus(v, b[k]) if isinstance(v, dict) else v - b[k]
+    return out
+
+
+def graphs_on_card() -> int:
+    """CUDA graphs held by the compile cache's programs, on the card."""
+    from repro_torch.core import blockc
+    return sum(len(plan._units) for cp in blockc._CACHE.values()
+               if isinstance(cp, blockc.CompiledProgram)
+               for (d, _), plan in cp._plans.items() if d.type == "cuda")
+
+
+def run_fleet(dev, tiers: dict) -> dict:
+    """Phase 3c: the 22 suite jobs, each submitted :data:`FLEET_COPIES`
+    times with its own inputs, through ``Fleet`` on the card, one fleet a
+    configuration of the suite (:func:`fleet_batches`: a fleet shares one
+    ``EGPUConfig``), every ``JobResult`` held against the reference's
+    digests.  Drain A: same-program groups on the compiled tiers (no
+    degraded unit); drain B: the same submissions again, replayed from
+    resident inputs (a residency hit a compiled batch), results equal to
+    A's; drain C: ``use_compiler=False``, mixed interpreter ``fleet_run``
+    batches of 32; drain D: ``FleetScheduler.drain_isolated`` under a
+    seeded ``FaultPlan`` that fires ``compile`` once and ``dispatch``
+    once.  The eGPU kernels' counters are zeroed just before the drains
+    and read just after: every launch on ``step``.  Then every suite job
+    through ``compile_program(optimize=True)`` under ``blocks`` and
+    ``superblock``, each leaf held against
+    ``programs/reference_digests_optimized.json``.  Prints each drain's
+    wall, jobs/s, batches by tier, compile seconds, residency hits and
+    µs a job step beside phase 3b's tiers."""
+    import torch
+    from repro_torch import programs
+    from repro_torch.core import benchmark_config, compile_program
+    from repro_torch.core.machine import state_to_numpy
+    from repro_torch.fleet import FaultPlan, Fleet, FleetScheduler
+    from repro_torch.programs import suite
+
+    digests = suite.load_digests()
+    groups = {c: suite.build_suite(programs, benchmark_config,
+                                   [suite.SUITE[i] for i in idx], config=c)
+              for c, idx in fleet_batches().items()}
+    cfgs = {c: benchmark_config(**suite.CONFIGS[c]) for c in groups}
+
+    def drain(fleets: dict, label: str, isolated: bool = False):
+        """Submit every job FLEET_COPIES times to its configuration's
+        fleet and drain them all; returns ``({(job, copy): JobResult},
+        wall seconds, stats delta summed over the fleets)``."""
+        before = {c: fleet_stats(f.stats) for c, f in fleets.items()}
+        graphs0 = graphs_on_card()
+        out, wall = {}, 0.0
+        for c, f in fleets.items():
+            hs = {}
+            for k in range(FLEET_COPIES):
+                for b in groups[c]:
+                    h = f.submit(b.image, b.shared_init, tdx_dim=b.tdx_dim,
+                                 tag=b.name)
+                    hs[h] = (b.name, k)
+            t0 = time.perf_counter()
+            res = f.drain_isolated() if isolated else f.drain()
+            wall += time.perf_counter() - t0
+            if isolated:
+                res, failures = res
+                if failures:
+                    raise AssertionError(f"drain {label}: failures "
+                                         f"{sorted(failures)}")
+            if sorted(res) != sorted(hs):
+                raise AssertionError(f"drain {label}: delivered handles "
+                                     "differ from the submitted ones")
+            for h, key in hs.items():
+                result_held(digests, key[0], res[h], f"drain {label}")
+                out[key] = res[h]
+        deltas = [stats_minus(fleet_stats(f.stats), before[c])
+                  for c, f in fleets.items()]
+        total = deltas[0]
+        for d in deltas[1:]:
+            total = {k: ({t: v[t] + d[k][t] for t in v}
+                         if isinstance(v, dict) else v + d[k])
+                     for k, v in total.items()}
+        steps = sum(r.steps for r in out.values())
+        total["graphs_captured"] = graphs_on_card() - graphs0
+        log(f"[fleet] drain {label}: {len(out)} jobs in {wall:.3f}s wall "
+            f"({len(out) / wall:.1f} jobs/s; execution "
+            f"{total['wall_s']:.3f}s, {len(out) / total['wall_s']:.1f} "
+            f"jobs/s), {1e6 * wall / steps:.2f} us a job step over "
+            f"{steps} job steps ({1e6 * total['wall_s'] / steps:.2f} "
+            f"executing); batches {total['batches']} by tier "
+            f"{total['batches_by_tier']}, pad slots {total['pad_slots']}, "
+            f"compile_s {total['compile_s']:.3f} ("
+            f"{total['graphs_captured']} graphs captured), residency hits "
+            f"{total['residency_hits']} misses {total['residency_misses']}, "
+            f"degraded units {total['degraded_units']}, bisections "
+            f"{total['bisections']}, salvaged jobs "
+            f"{total['salvaged_jobs']}; every result holds against the "
+            "digests")
+        total.update(jobs_delivered=len(out), drain_wall_s=wall,
+                     job_steps=steps, us_per_job_step=1e6 * wall / steps)
+        return out, total
+
+    def same(a: dict, b: dict, label: str) -> None:
+        for key, r in a.items():
+            g = b[key]
+            if not (np.array_equal(r.shared, g.shared)
+                    and (r.cycles, r.steps, r.hazard_violations)
+                    == (g.cycles, g.steps, g.hazard_violations)
+                    and np.array_equal(r.stat_cycles, g.stat_cycles)
+                    and np.array_equal(r.stat_instrs, g.stat_instrs)):
+                raise AssertionError(f"drain {label} {key}: differs from "
+                                     "drain A")
+
+    counters = egpu_counters()
+    for f in counters.values():
+        f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
+    fleets = {c: Fleet(cfg, batch_size=32, device=dev)
+              for c, cfg in cfgs.items()}
+    a, sa = drain(fleets, "A")
+    if sa["degraded_units"]:
+        raise AssertionError(f"drain A degraded {sa['degraded_units']} "
+                             "units")
+    rejected = sorted({k[0] for k, r in a.items() if r.tier == "interp"})
+    if rejected:
+        log(f"[fleet] drain A: the compiler rejected {rejected}; they ran "
+            "on the interpreter")
+    b_, sb = drain(fleets, "B")
+    compiled_b = sb["batches_by_tier"]["superblock"] \
+        + sb["batches_by_tier"]["blocks"]
+    if sb["residency_hits"] != compiled_b or sb["degraded_units"]:
+        raise AssertionError(f"drain B: residency hits "
+                             f"{sb['residency_hits']}, compiled batches "
+                             f"{compiled_b}, degraded {sb['degraded_units']}")
+    same(a, b_, "B")
+    c_, sc = drain({c: Fleet(cfg, batch_size=32, use_compiler=False,
+                             device=dev) for c, cfg in cfgs.items()}, "C")
+    same(a, c_, "C")
+    if sc["batches_by_tier"]["interp"] != sc["batches"]:
+        raise AssertionError("drain C ran off the interpreter")
+    plan = FaultPlan(seed=16, compile={"count": 1}, dispatch={"count": 1})
+    with plan:
+        d_, sd = drain({c: FleetScheduler(cfg, batch_size=32, device=dev)
+                        for c, cfg in cfgs.items()}, "D", isolated=True)
+    if plan.injected != {"compile": 1, "dispatch": 1}:
+        raise AssertionError(f"drain D: faults injected {plan.injected}")
+    same(a, d_, "D")
+    log(f"[fleet] drain D under FaultPlan(seed=16, compile once, dispatch "
+        f"once): injected {plan.log}; degraded units "
+        f"{sd['degraded_units']}, bisections {sd['bisections']}, salvaged "
+        f"jobs {sd['salvaged_jobs']}")
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    routes = {k: dict(f.by_route) for k, f in counters.items()}
+    log(f"[fleet] drains A-D: kernel launches {launches}, by route {routes}")
+    for k, v in routes.items():
+        if v["step"] <= 0 or v["tile"] or v["step"] != launches[k]:
+            raise AssertionError(f"{k}: the fleet's launches by route {v}, "
+                                 "expected all on 'step'")
+    for label, st in (("A", sa), ("B", sb), ("C", sc), ("D", sd)):
+        log(f"[fleet] drain {label}: {st['us_per_job_step']:.2f} us a job "
+            f"step against phase 3b's single-job runs: "
+            + ", ".join(f"{m} {tiers['summary'][m + '/suite']['us_per_step']:.2f}"
+                        for m in ("blocks", "superblock", "auto"))
+            + f", run_program "
+            f"{tiers['summary']['auto/suite']['run_program_us_per_step']:.2f}")
+
+    # the verified optimizer through both compiled tiers
+    opt = suite.load_digests(suite.OPTIMIZED_DIGESTS_PATH)
+    for f in counters.values():
+        f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
+    n = 0
+    for b in suite.build_suite(programs, benchmark_config):
+        for mode in ("blocks", "superblock"):
+            cp = compile_program(b.image, mode=mode, optimize=True)
+            st = cp.run(shared_init=b.shared_init, tdx_dim=b.tdx_dim,
+                        device=dev)
+            got = suite.leaf_digests(state_to_numpy(st))
+            bad = [k for k, v in opt[b.name]["leaves"].items()
+                   if got[k] != v]
+            if bad:
+                raise AssertionError(f"optimize {mode} {b.name}: leaves "
+                                     f"{bad} differ from the reference's "
+                                     "optimized digests")
+            n += 1
+    torch.cuda.synchronize()
+    opt_launches = {k: f.launches for k, f in counters.items()}
+    opt_routes = {k: dict(f.by_route) for k, f in counters.items()}
+    for k, v in opt_routes.items():
+        if v["step"] <= 0 or v["tile"] or v["step"] != opt_launches[k]:
+            raise AssertionError(f"{k}: the optimized runs' launches by "
+                                 f"route {v}, expected all on 'step'")
+    log(f"[fleet] compile_program(optimize=True): {n} runs (22 jobs x "
+        "blocks, superblock) match the reference's optimized digests; "
+        f"kernel launches {opt_launches}, by route {opt_routes}")
+    return {"launches": launches, "routes": routes,
+            "opt_launches": opt_launches, "opt_routes": opt_routes,
+            "drains": {"A": sa, "B": sb, "C": sc, "D": sd}}
 
 
 # ---------------------------------------------------------------------------
@@ -1539,16 +1795,22 @@ def main(argv) -> int:
     check_step_kernels(dev)
     res = run_suite(dev)
     tiers = run_tiers(dev, res)
+    fleet = run_fleet(dev, tiers)
     profile_steps(dev)
-    # the main path's launches: the interpreter and fleet phase's and the
-    # compiled tiers' (each counted from 0 just before its own runs)
-    launches = {k: v + tiers["launches"][k] for k, v in res["launches"].items()}
-    routes = {k: {r: n + tiers["routes"][k][r] for r, n in v.items()}
+    # the main path's launches: the interpreter and fleet_run phase's, the
+    # compiled tiers', the scheduler's drains' and the optimized runs'
+    # (each counted from 0 just before its own runs)
+    paths = {"run_program+fleet_run": (res["launches"], res["routes"]),
+             "compiled_tiers": (tiers["launches"], tiers["routes"]),
+             "fleet_scheduler": (fleet["launches"], fleet["routes"]),
+             "optimized_tiers": (fleet["opt_launches"], fleet["opt_routes"])}
+    launches = {k: sum(p[0][k] for p in paths.values())
+                for k in res["launches"]}
+    routes = {k: {r: sum(p[1][k][r] for p in paths.values()) for r in v}
               for k, v in res["routes"].items()}
     kernels = time_kernels(dev, worst, launches, routes)
     for k in kernels:
-        k["paths"] = {"run_program+fleet_run": res["launches"][k["name"]],
-                      "compiled_tiers": tiers["launches"][k["name"]]}
+        k["paths"] = {name: p[0][k["name"]] for name, p in paths.items()}
 
     check_lm_kernels(dev)
     serve_reference(dev)

@@ -64,7 +64,7 @@ from .executor import (EXT_OPCODES, FP_OPCODES, HostCore, _PF_OP, _PF_RA,
                        tables_np)
 from .isa import Op, Typ
 from .machine import MachineState, resolve_device
-from ..kernels import fp32
+from ..kernels import build, egpu_step, fp32
 from ..kernels.dot_product import ops as dops
 from ..kernels.wavefront_alu import ops as wops
 from ..obs import trace as obs_trace
@@ -1278,13 +1278,16 @@ class CompiledProgram:
 
     def light_compile(self, shared, tdx_dim, device=None) -> float:
         """Make the plan for these inputs' batch width and device ahead
-        of time: on the card, warm up and capture every unit's graph;
-        returns the host seconds that took (0.0 when the plan exists,
-        and on the CPU, where the plan is eager)."""
+        of time: on the card, build the step kernels if this process has
+        not yet, then warm up and capture every unit's graph; returns
+        the host seconds that took (0.0 when the plan exists, and on the
+        CPU, where the plan is eager)."""
         sh, _, dev, _ = self._inputs(shared, tdx_dim, device)
         if (dev, sh.shape[0]) in self._plans:
             return 0.0
-        return self._plan(dev, sh.shape[0]).capture_s
+        built = build.ensure(egpu_step.KERNELS) if dev.type == "cuda" \
+            else 0.0
+        return built + self._plan(dev, sh.shape[0]).capture_s
 
     def run_light_dev(self, shared, tdx_dim, device=None):
         """Raw light entry: ``(..., S)`` shared image (uint32 words as
@@ -1391,14 +1394,19 @@ def compile_program(image: ProgramImage, threads: int | None = None, *,
     :class:`BlockCompileError` when ineligible).
 
     Raises :class:`BlockCompileError` for programs whose static path does
-    not halt within ``cfg.max_steps``.  ``optimize=True`` (the
-    reference's verified pre-compile optimizer) is not ported yet.
+    not halt within ``cfg.max_steps``.
+
+    ``optimize=True`` first runs the verified pre-compile optimizer
+    (:func:`repro_torch.analysis.optimizer.optimize_image`, itself
+    cached): constant folding + dead-code elimination with hazard NOPs
+    re-derived by the scheduler, bit-identical architectural end state
+    guaranteed.  The optimized image then keys the compile cache as
+    usual (distinct program bytes, distinct entry).
     """
-    if optimize:
-        raise NotImplementedError(
-            "optimize=True needs analysis/optimizer.py, not ported yet "
-            "(ROADMAP.md, queue 1, item 6)")
     threads = normalize_threads(image, threads)
+    if optimize:
+        from ..analysis.optimizer import optimize_image_cached
+        image = optimize_image_cached(image, threads).image
     pol = DEFAULT_TIER_POLICY if policy is None else policy
     hint = pol.batch_class(batch_hint) if mode == "auto" else 1
     key = (image.cfg, program_key(image), threads, validate, mode, pol,

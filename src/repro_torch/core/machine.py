@@ -163,6 +163,10 @@ def shared_as_i32(state: MachineState) -> np.ndarray:
     return state.shared.cpu().numpy()
 
 
+def regs_as_f32(state: MachineState) -> np.ndarray:
+    return state.regs.cpu().numpy().view(np.float32)
+
+
 def profile(state: MachineState) -> dict[str, tuple[int, int]]:
     """Instruction-mix profile (cycles, instructions) per class — Fig. 6."""
     sc = state.stat_cycles.cpu().tolist()

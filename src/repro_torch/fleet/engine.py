@@ -18,6 +18,7 @@ ResidencyCache``).
 """
 from __future__ import annotations
 
+import time
 import weakref
 from collections import OrderedDict
 
@@ -27,7 +28,11 @@ from ..core.assembler import ProgramImage
 from ..core.executor import pad_image, padded_length, run_batch
 from ..core.machine import (MachineState, init_numpy, resolve_device,
                             state_to_numpy)
+from ..kernels import build, egpu_step
+from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from . import devices as devices_mod
+from . import faults
 
 
 class ResidencyCache:
@@ -99,19 +104,29 @@ def unstack_state(batched: MachineState, i: int) -> MachineState:
 
 
 def fleet_run(images: list[ProgramImage],
-              states: list[MachineState] | MachineState | None = None, *,
+              states: list | MachineState | None = None, *,
               prog_len: int | None = None,
               init_kw: list[dict] | None = None,
               validate: bool = True,
+              timings: dict | None = None,
               device="cuda") -> MachineState:
     """Execute one program per core, all cores in lock step.
 
-    ``images`` must share a configuration.  ``states`` (a list of
-    per-core states or a batched one) or per-job ``init_kw`` dicts for
-    ``init_state`` supply each core's shared memory, thread count and
-    TDX grid.  Returns the batched final :class:`MachineState`; slice
-    per-core results out with :func:`unstack_state`.  Runs on the card
-    unless ``device="cpu"`` (given states decide the device).
+    ``images`` must share a configuration.  ``states`` supply each
+    core's shared memory, thread count and TDX grid: a list of per-core
+    states, a batched state, or a list of per-core leaf dicts of numpy
+    arrays in the reference's dtypes (what ``init_numpy`` gives, and
+    what the sequencer reads: no round trip through the card); or
+    per-job ``init_kw`` dicts for ``init_state`` build them.  Returns
+    the batched final :class:`MachineState`; slice per-core results out
+    with :func:`unstack_state`.  Runs on the card unless
+    ``device="cpu"`` (given states decide the device, leaf dicts do
+    not).
+
+    ``timings``, if given, receives ``{"compile_s": ...}``: the host
+    seconds this call spent building and loading the step kernels' CUDA
+    libraries (0.0 when warm, and on the CPU), so callers timing the
+    dispatch can attribute that one-time cost apart.
     """
     if not images:
         raise ValueError("empty fleet")
@@ -124,20 +139,46 @@ def fleet_run(images: list[ProgramImage],
         init_kw = init_kw or [{}] * len(images)
         leaves = [init_numpy(cfg, threads=im.threads_active, **kw)
                   for im, kw in zip(images, init_kw)]
+    elif isinstance(states, MachineState):
+        dev = states.regs.device
+        batched = state_to_numpy(states)      # one copy a leaf
+        leaves = [{k: v[i] for k, v in batched.items()}
+                  for i in range(states.regs.shape[0])]
+    elif states and isinstance(states[0], dict):
+        dev = resolve_device(device)
+        leaves = states
     else:
-        if isinstance(states, MachineState):
-            states = [unstack_state(states, i)
-                      for i in range(states.regs.shape[0])]
-        if len(states) != len(images):
-            raise ValueError("one state per core required")
-        dev = states[0].regs.device
+        dev = states[0].regs.device if states else resolve_device(device)
         leaves = [state_to_numpy(s) for s in states]
+    if len(leaves) != len(images):
+        raise ValueError("one state per core required")
     if prog_len is None:
         prog_len = max(padded_length(im.n) for im in images)
     packed = [pad_image(im, prog_len)[0] for im in images]
+    label = devices_mod.device_label(dev)
+    compile_s = 0.0
+    if dev.type == "cuda":
+        with obs_trace.span("compile", kind="nvcc", device=label):
+            compile_s = build.ensure(egpu_step.KERNELS)
+    if timings is not None:
+        timings["compile_s"] = compile_s
+    t_disp = time.perf_counter()
     with obs_trace.span("dispatch", cores=len(images), prog_len=prog_len,
-                        device=str(dev)):
+                        device=label):
+        faults.maybe_raise("dispatch", tier="interp", cores=len(images),
+                           device=label)
         out = run_batch(cfg, packed, leaves, prog_len, validate, dev)
+    t_sync = time.perf_counter()
+    with obs_trace.span("device_sync"):
+        hang = faults.hang_seconds("device_sync", tier="interp",
+                                   device=label)
+        if hang:
+            time.sleep(hang)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+    t_done = time.perf_counter()
+    obs_metrics.observe("fleet_dispatch_seconds", t_sync - t_disp,
+                        tier="interp", device=label)
+    obs_metrics.observe("fleet_device_sync_seconds", t_done - t_sync,
+                        tier="interp", device=label)
     return out

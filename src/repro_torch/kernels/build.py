@@ -29,6 +29,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -144,6 +145,17 @@ def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
                 fn.restype = ctypes.c_int
             _libs[n] = lib
         return dict(_libs)
+
+
+def ensure(names) -> float:
+    """Build and load the libraries of ``names`` not loaded yet; returns
+    the seconds that took (0.0 when every one was loaded already), so a
+    caller timing its run can report the one-time build apart."""
+    if all(n in _libs for n in names):
+        return 0.0
+    t0 = time.perf_counter()
+    build_all(tuple(names))
+    return time.perf_counter() - t0
 
 
 _entries: dict = {}

@@ -20,6 +20,9 @@ import torch
 
 from . import build
 
+#: the libraries of the two step kernels (``build.ensure`` takes them)
+KERNELS = ("wavefront_alu", "dot_product")
+
 #: trace row columns (``core.executor.PROG_FIELDS``)
 ROW_OP, ROW_RD, ROW_RA, ROW_RB, ROW_TSC = 0, 2, 3, 4, 6
 ROW_LEN = 7

@@ -11,7 +11,9 @@ two predicate levels where the program needs them.
 The suite is plain data so that the JAX reference and the port build
 the same jobs; :func:`leaf_digests` fingerprints a final state's leaves
 in the reference's dtypes, so a run on the card, where there is no JAX,
-can be tied to the reference through a committed file of digests.
+can be tied to the reference through a committed file of digests
+(one for the programs as built, one for them through the verified
+optimizer).
 """
 from __future__ import annotations
 
@@ -39,6 +41,10 @@ SUITE = tuple(
 
 DIGESTS_PATH = pathlib.Path(__file__).resolve().parent \
     / "reference_digests.json"
+#: the same jobs through ``compile_program(optimize=True).run``: the
+#: verified optimizer's images (the FFT jobs change; the rest round-trip)
+OPTIMIZED_DIGESTS_PATH = DIGESTS_PATH.with_name(
+    "reference_digests_optimized.json")
 
 
 def build_suite(programs_mod, benchmark_config, suite=SUITE,

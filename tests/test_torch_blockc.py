@@ -302,15 +302,18 @@ def test_explicit_zero_threads_rejected():
 def test_entry_points_default_to_the_card_and_optimize_waits():
     """``run_compiled`` and the run methods run on the card unless the
     caller asks for the CPU (no silent fallback without one);
-    ``optimize=True`` names the queue item that ports the optimizer."""
+    ``optimize=True`` compiles the verified optimizer's image (the
+    reference's ``optimize_image_cached(...).image``)."""
+    from repro_torch.analysis.optimizer import optimize_image
     img = _tiny_prog(9)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_compiled(img)
         with pytest.raises(RuntimeError, match="CUDA"):
             compile_program(img).run_light()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        compile_program(img, optimize=True)
+    cp = compile_program(img, optimize=True)
+    want = optimize_image(img, img.threads_active).image
+    assert cp.image.words.tobytes() == want.words.tobytes()
 
 
 def test_compiled_batch_tdx_dims_vary():

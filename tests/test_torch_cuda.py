@@ -545,3 +545,81 @@ def test_compiled_batch_and_light_path_on_cuda(dev):
         assert first.data_ptr() != second.data_ptr()
         assert np.array_equal(first.cpu().numpy().view(np.uint32),
                               exp["shared"])
+
+
+# ---------------------------------------------------------------------------
+# Coverage: every configuration and generated programs, every path
+# ---------------------------------------------------------------------------
+
+def _coverage_jobs(name):
+    """The suite of this configuration plus four generated programs
+    (clean and hostile), as ``(label, image, init keywords)``."""
+    from repro_torch.programs.generator import generate_program
+    cfg = tp.config(EGPUConfig, name)
+    out = [(b.name, b.image, dict(shared_init=b.shared_init,
+                                  tdx_dim=b.tdx_dim))
+           for b in tp.suite(tprog, cfg).values()]
+    for k, (seed, h) in enumerate(((200, 0.0), (201, 0.0), (202, 1.0),
+                                   (203, 1.0))):
+        data = np.random.default_rng(seed).integers(
+            0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
+        out.append((f"gen{seed}-{h}", generate_program(cfg, seed,
+                                                       hostility=h),
+                    dict(shared_init=data, tdx_dim=(4, 8, 16, 32)[k])))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(tp.CONFIGS))
+def test_every_path_on_cuda_equals_cpu(dev, name):
+    """``run_program``, a heterogeneous ``fleet_run``, the three
+    compiled tiers (a program the compiler rejects takes the
+    interpreter) and a ``Fleet`` drain on the card, each equal to the
+    port's CPU run leaf for leaf, in all four CONFIGS and on generated
+    programs."""
+    from repro_torch.analysis import ProgramVerificationError
+    from repro_torch.core import run_compiled
+    from repro_torch.core.blockc import default_policy_for_device
+    from repro_torch.fleet import Fleet
+    jobs = _coverage_jobs(name)
+    cpu = {}
+    for label, img, kw in jobs:
+        cpu[label] = state_to_numpy(run_program(img, device="cpu", **kw))
+        tp.assert_leaves_equal(
+            cpu[label], state_to_numpy(run_program(img, device=dev, **kw)),
+            f"run_program {name}/{label}")
+        for mode in ("blocks", "superblock", "auto"):
+            got = run_compiled(img, mode=mode, device=dev, **kw)
+            tp.assert_leaves_equal(cpu[label], state_to_numpy(got),
+                                   f"{mode} {name}/{label}")
+    out = fleet_run([img for _, img, _ in jobs],
+                    init_kw=[kw for _, _, kw in jobs], device=dev)
+    for k, (label, _, _) in enumerate(jobs):
+        tp.assert_leaves_equal(cpu[label],
+                               state_to_numpy(unstack_state(out, k)),
+                               f"fleet_run {name}/{label}")
+    cfg = tp.config(EGPUConfig, name)
+    policy = default_policy_for_device(dev)      # one routing on both
+    fleets = [Fleet(cfg, batch_size=4, tier_policy=policy, device=d)
+              for d in ("cpu", dev)]
+    results = []
+    for fl in fleets:
+        for label, img, kw in jobs * 2:
+            try:
+                fl.submit(img, kw["shared_init"], tdx_dim=kw["tdx_dim"],
+                          tag=label)
+            except ProgramVerificationError:
+                assert label.startswith("gen"), label   # the lint's call
+        results.append(fl.drain())
+    assert sorted(results[0]) == sorted(results[1])
+    for h, r in results[0].items():
+        g = results[1][h]
+        assert (g.tag, g.tier, g.cycles, g.steps, g.hazard_violations) \
+            == (r.tag, r.tier, r.cycles, r.steps, r.hazard_violations), h
+        assert np.array_equal(g.shared, r.shared), f"Fleet {name}/{r.tag}"
+        assert np.array_equal(g.stat_cycles, r.stat_cycles)
+        assert np.array_equal(g.stat_instrs, r.stat_instrs)
+        assert np.array_equal(
+            cpu[r.tag]["shared"], g.shared), f"Fleet vs run {r.tag}"
+    assert fleets[1].stats.compiled_batches == \
+        fleets[0].stats.compiled_batches > 0
+    assert fleets[1].stats.degraded_units == 0
