@@ -56,6 +56,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``programs/reference_digests_optimized.json``; prints each drain's
    wall, jobs/s, batches by tier, compile seconds, residency hits and
    µs a job step beside phase 3b's tiers;
+   3d. the serving loop and the multi-device fleet (``fleet/service.py``,
+   ``fleet/sharded.py``): the same 66 submissions through
+   ``FleetService(batch_size=32)`` (one a configuration, both at once;
+   cold, then warm), a seeded chaos soak through ``serve_jobs``, the
+   watchdog (one ``device_sync`` hang: 1 reset, the cohort as
+   timeouts), ``Fleet(devices="all")`` (a megabatch slab of one
+   program and the mixed suite, bit-identical to a plain ``Fleet``)
+   and ``FleetService(devices="all")`` with ``device_fail`` on its only
+   card (never killed); every result held against the digests, every
+   launch on ``step``; prints submit-to-resolve p50/p99 from the
+   service's histogram, jobs/s and µs a job step beside drain B,
+   megabatch slabs, lane batches and scheduler resets;
 4. time each eGPU kernel four ways, device time (a CUDA graph of
    launches) and eager: the ``step`` route as ``run_program`` issues
    it, the ``tile`` route, the previous composition and one PyTorch
@@ -507,10 +519,7 @@ def run_tiers(dev, interp: dict) -> dict:
             cps[mode, b.name] = cp
             capture[mode, b.name] = cp.light_compile(
                 np.zeros(cp.cfg.shared_words, np.uint32), b.tdx_dim, dev)
-    counters = egpu_counters()
-    for f in counters.values():
-        f.launches = 0
-        f.by_route = dict.fromkeys(f.by_route, 0)
+    zero_egpu_counters()
     rows, runs = [], {}
     for mode, pol in modes.items():
         for b in jobs:
@@ -530,17 +539,11 @@ def run_tiers(dev, interp: dict) -> dict:
                          "steps": int(st.steps), "replays": gs["replays"],
                          "graphs": gs["graphs"],
                          "capture_s": capture[mode, b.name]})
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
-    routes = {k: dict(f.by_route) for k, f in counters.items()}
+    launches, routes = read_egpu_counters("the compiled tiers")
     log(f"[tiers] {len(rows)} runs ({len(jobs)} jobs x blocks, superblock, "
         "auto) "
         f"match the digests; kernel launches {launches}, by route {routes}; "
         "each job's step launches equal its run_program's")
-    for k, v in routes.items():
-        if v["step"] <= 0 or v["tile"] or v["step"] != launches[k]:
-            raise AssertionError(f"{k}: the compiled tiers' launches by "
-                                 f"route {v}, expected all on 'step'")
 
     for (mode, name), st in runs.items():
         b = next(j for j in jobs if j.name == name)
@@ -717,7 +720,6 @@ def run_fleet(dev, tiers: dict) -> dict:
     ``programs/reference_digests_optimized.json``.  Prints each drain's
     wall, jobs/s, batches by tier, compile seconds, residency hits and
     µs a job step beside phase 3b's tiers."""
-    import torch
     from repro_torch import programs
     from repro_torch.core import benchmark_config, compile_program
     from repro_torch.core.machine import state_to_numpy
@@ -796,10 +798,7 @@ def run_fleet(dev, tiers: dict) -> dict:
                 raise AssertionError(f"drain {label} {key}: differs from "
                                      "drain A")
 
-    counters = egpu_counters()
-    for f in counters.values():
-        f.launches = 0
-        f.by_route = dict.fromkeys(f.by_route, 0)
+    zero_egpu_counters()
     fleets = {c: Fleet(cfg, batch_size=32, device=dev)
               for c, cfg in cfgs.items()}
     a, sa = drain(fleets, "A")
@@ -834,14 +833,8 @@ def run_fleet(dev, tiers: dict) -> dict:
         f"once): injected {plan.log}; degraded units "
         f"{sd['degraded_units']}, bisections {sd['bisections']}, salvaged "
         f"jobs {sd['salvaged_jobs']}")
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
-    routes = {k: dict(f.by_route) for k, f in counters.items()}
+    launches, routes = read_egpu_counters("the fleet")
     log(f"[fleet] drains A-D: kernel launches {launches}, by route {routes}")
-    for k, v in routes.items():
-        if v["step"] <= 0 or v["tile"] or v["step"] != launches[k]:
-            raise AssertionError(f"{k}: the fleet's launches by route {v}, "
-                                 "expected all on 'step'")
     for label, st in (("A", sa), ("B", sb), ("C", sc), ("D", sd)):
         log(f"[fleet] drain {label}: {st['us_per_job_step']:.2f} us a job "
             f"step against phase 3b's single-job runs: "
@@ -852,9 +845,7 @@ def run_fleet(dev, tiers: dict) -> dict:
 
     # the verified optimizer through both compiled tiers
     opt = suite.load_digests(suite.OPTIMIZED_DIGESTS_PATH)
-    for f in counters.values():
-        f.launches = 0
-        f.by_route = dict.fromkeys(f.by_route, 0)
+    zero_egpu_counters()
     n = 0
     for b in suite.build_suite(programs, benchmark_config):
         for mode in ("blocks", "superblock"):
@@ -869,19 +860,270 @@ def run_fleet(dev, tiers: dict) -> dict:
                                      f"{bad} differ from the reference's "
                                      "optimized digests")
             n += 1
-    torch.cuda.synchronize()
-    opt_launches = {k: f.launches for k, f in counters.items()}
-    opt_routes = {k: dict(f.by_route) for k, f in counters.items()}
-    for k, v in opt_routes.items():
-        if v["step"] <= 0 or v["tile"] or v["step"] != opt_launches[k]:
-            raise AssertionError(f"{k}: the optimized runs' launches by "
-                                 f"route {v}, expected all on 'step'")
+    opt_launches, opt_routes = read_egpu_counters("the optimized runs")
     log(f"[fleet] compile_program(optimize=True): {n} runs (22 jobs x "
         "blocks, superblock) match the reference's optimized digests; "
         f"kernel launches {opt_launches}, by route {opt_routes}")
     return {"launches": launches, "routes": routes,
             "opt_launches": opt_launches, "opt_routes": opt_routes,
             "drains": {"A": sa, "B": sb, "C": sc, "D": sd}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the serving loop and the multi-device fleet (fleet/service.py,
+# fleet/sharded.py, fleet/devices.py)
+# ---------------------------------------------------------------------------
+
+def run_serving(dev, fleet: dict) -> dict:
+    """Phase 3d: the serving loop and the multi-device fleet, on the 22
+    paper-size suite jobs (each submitted :data:`FLEET_COPIES` times),
+    one service or fleet a suite configuration, every result held
+    against the reference's digests.  (a) ``FleetService(batch_size=32)``
+    for each configuration at once, cold (graph captures at width 32)
+    then warm (a fresh service), with the submit-to-resolve latency of
+    its own histogram; (b) ``serve_jobs`` under a seeded ``FaultPlan``
+    (``compile``, ``dispatch``, ``residency_evict``,
+    ``salvage_corrupt``): every future resolves, at least 3 faults;
+    (c) the watchdog: a warm cohort, one ``device_sync`` hang longer
+    than ``dispatch_timeout_s`` (ten times a warm drain): 1 scheduler
+    reset, the cohort counted as timeouts, the retried results held;
+    (d) ``Fleet(devices="all")``: one megabatch slab of ``matmul_64_dp``
+    and the mixed suite through the balanced lanes, bit-identical to a
+    plain ``Fleet`` of the same submissions; (e) ``FleetService(devices=
+    "all")`` under ``device_fail`` on every device: the last healthy
+    device is never killed.  The eGPU kernels' counters are zeroed just
+    before and read just after (a)-(c), (d) and (e): every launch on
+    ``step``."""
+    from repro_torch import programs
+    from repro_torch.core import benchmark_config
+    from repro_torch.fleet import (FaultPlan, Fleet, FleetScheduler,
+                                   FleetService, serve_jobs)
+    from repro_torch.programs import suite
+
+    digests = suite.load_digests()
+    groups = {c: suite.build_suite(programs, benchmark_config,
+                                   [suite.SUITE[i] for i in idx], config=c)
+              for c, idx in fleet_batches().items()}
+    cfgs = {c: benchmark_config(**suite.CONFIGS[c]) for c in groups}
+    steps = {k: v["steps"] for k, v in digests.items()}
+    job_steps = FLEET_COPIES * sum(steps[b.name] for g in groups.values()
+                                   for b in g)
+    drain_b = fleet["drains"]["B"]["us_per_job_step"]
+    out: dict = {}
+
+    def copies(c):
+        return [b for _ in range(FLEET_COPIES) for b in groups[c]]
+
+    def outcome_held(b, r, where):
+        if isinstance(r, Exception):
+            raise AssertionError(f"{where} {b.name}: {r!r}")
+        result_held(digests, b.name, r, where)
+
+    def serve(label, **kw):
+        """Every configuration's copies through its own FleetService, all
+        services at once; returns (wall s, compile s, services)."""
+        svcs = {c: FleetService(cfg, batch_size=32, device=dev, **kw)
+                for c, cfg in cfgs.items()}
+        try:
+            t0 = time.perf_counter()
+            futs = {c: [(b, svcs[c].submit(b.image, b.shared_init,
+                                           tdx_dim=b.tdx_dim, tag=b.name))
+                        for b in copies(c)] for c in cfgs}
+            for c, fs in futs.items():
+                for b, f in fs:
+                    outcome_held(b, f.result(timeout=600), f"serve {label}")
+            wall = time.perf_counter() - t0
+        finally:
+            for s in svcs.values():
+                s.close()
+        compile_s = sum(s.metrics.total("fleet_compile_seconds_total")
+                        for s in svcs.values())
+        return wall, compile_s, svcs
+
+    # (a) the service, cold then warm
+    zero_egpu_counters()
+    for label in ("cold", "warm"):
+        wall, compile_s, svcs = serve(label)
+        slo = {c: s.stats.final_snapshot.meta["slo"] for c, s in svcs.items()}
+        st = {c: s.stats for c, s in svcs.items()}
+        n = sum(x.completed for x in st.values())
+        if n != sum(len(copies(c)) for c in cfgs):
+            raise AssertionError(f"serve {label}: {n} completed")
+        row = {"wall_s": wall, "compile_s": compile_s, "jobs": n,
+               "jobs_per_s": n / wall, "us_per_job_step":
+               1e6 * wall / job_steps,
+               "us_per_job_step_exec": 1e6 * (wall - compile_s) / job_steps,
+               "dispatches": sum(x.dispatches for x in st.values()),
+               "p50_s": {c: v["request_p50_s"] for c, v in slo.items()},
+               "p99_s": {c: v["request_p99_s"] for c, v in slo.items()}}
+        out[f"serve_{label}"] = row
+        log(f"[serve] (a) FleetService(batch_size=32) {label}, one a "
+            f"configuration, at once: {n} jobs in {wall:.3f}s "
+            f"({row['jobs_per_s']:.1f} jobs/s), compile_s {compile_s:.3f}, "
+            f"{row['us_per_job_step']:.2f} us a job step "
+            f"({row['us_per_job_step_exec']:.2f} less compile) over "
+            f"{job_steps} job steps, against phase 3c's drain B "
+            f"{drain_b:.2f}; cohorts {row['dispatches']}; submit-to-resolve "
+            "latency (the service's histogram) p50 "
+            + ", ".join(f"{c} {v * 1e3:.1f} ms" for c, v in row["p50_s"].items())
+            + ", p99 "
+            + ", ".join(f"{c} {v * 1e3:.1f} ms" for c, v in row["p99_s"].items())
+            + "; every result holds against the digests")
+
+    # (b) the chaos soak
+    plan = FaultPlan(seed=17, compile={"p": 1.0, "count": 2},
+                     dispatch={"p": 1.0, "count": 2, "after": 1},
+                     residency_evict=0.2, salvage_corrupt=0.5)
+    jobs = copies("dot")
+    t0 = time.perf_counter()
+    res = serve_jobs(cfgs["dot"], [dict(image=b.image, tdx_dim=b.tdx_dim,
+                                        shared_init=b.shared_init,
+                                        tag=b.name) for b in jobs],
+                     batch_size=32, device=dev, faults=plan, max_retries=3,
+                     backoff_s=0.001)
+    wall = time.perf_counter() - t0
+    for b, r in zip(jobs, res):
+        outcome_held(b, r, "chaos soak")
+    if plan.total_injected() < 3:
+        raise AssertionError(f"chaos soak: injected {plan.injected}")
+    out["chaos"] = {"jobs": len(res), "injected": dict(plan.injected),
+                    "wall_s": wall}
+    log(f"[serve] (b) chaos soak under FaultPlan(seed=17): {len(res)} "
+        f"futures resolved in {wall:.3f}s, injected {plan.injected}, every "
+        "result holds against the digests")
+
+    # (c) the watchdog: warm cohort, one device_sync hang
+    wd = groups["pred2"]
+    sched = FleetScheduler(cfgs["pred2"], batch_size=32, compile_min=1,
+                           fixed_bucket=True, device=dev)
+    walls = []
+    for _ in range(2):
+        for b in wd:
+            sched.submit(b.image, b.shared_init, tdx_dim=b.tdx_dim)
+        t0 = time.perf_counter()
+        sched.drain_isolated()
+        walls.append(time.perf_counter() - t0)
+    timeout = max(0.5, 10 * min(walls))
+    plan = FaultPlan(seed=5, device_sync={"p": 1.0, "count": 1,
+                                          "hang_s": 2 * timeout})
+    svc = FleetService(cfgs["pred2"], batch_size=32, device=dev,
+                       faults=plan, dispatch_timeout_s=timeout,
+                       max_retries=2, max_delay_s=0.1)
+    try:
+        futs = [(b, svc.submit(b.image, b.shared_init, tdx_dim=b.tdx_dim,
+                               tag=b.name)) for b in wd]
+        for b, f in futs:
+            outcome_held(b, f.result(timeout=600), "watchdog")
+    finally:
+        svc.close()
+    st = svc.stats
+    if st.scheduler_resets != 1 or st.timeouts != len(wd) \
+            or plan.injected.get("device_sync") != 1:
+        raise AssertionError(f"watchdog: resets {st.scheduler_resets}, "
+                             f"timeouts {st.timeouts}, injected "
+                             f"{plan.injected}")
+    out["watchdog"] = {"timeout_s": timeout, "warm_drain_s": min(walls),
+                       "resets": st.scheduler_resets,
+                       "timeouts": st.timeouts}
+    log(f"[serve] (c) watchdog: warm drain {min(walls):.3f}s, "
+        f"dispatch_timeout_s {timeout:.3f}, one device_sync hang of "
+        f"{2 * timeout:.3f}s: {st.scheduler_resets} scheduler reset, "
+        f"{st.timeouts} timeouts, retried results hold against the digests")
+    service_a = read_egpu_counters("the service")
+
+    # (d) the sharded fleet, against a plain Fleet of the same submissions
+    mega = next(b for b in groups["dot"] if b.name == "matmul_64_dp")
+    sharded = {c: Fleet(cfg, batch_size=32, devices="all")
+               for c, cfg in cfgs.items()}
+    n_dev = sharded["dot"]._sched.n_devices
+    sets = {"megabatch": {"dot": [mega] * (n_dev * 32 + 3)},
+            "mixed": {c: copies(c) for c in cfgs}}
+
+    def drain_all(fleets, subs):
+        t0 = time.perf_counter()
+        got = {}
+        for c, bs in subs.items():
+            hs = [fleets[c].submit(b.image, b.shared_init, tdx_dim=b.tdx_dim,
+                                   tag=b.name) for b in bs]
+            res = fleets[c].drain()
+            got[c] = [res[h] for h in hs]
+        return got, time.perf_counter() - t0
+
+    plain = {c: Fleet(cfg, batch_size=32, device=dev)
+             for c, cfg in cfgs.items()}
+    expect = {k: drain_all(plain, subs)[0] for k, subs in sets.items()}
+    zero_egpu_counters()
+    for k, subs in sets.items():
+        before = {c: f.stats.per_device() for c, f in sharded.items()}
+        got, wall = drain_all(sharded, subs)
+        for c, bs in subs.items():
+            for b, g, e in zip(bs, got[c], expect[k][c]):
+                result_held(digests, b.name, g, f"sharded {k}")
+                if not (np.array_equal(g.shared, e.shared)
+                        and (g.cycles, g.steps, g.tier)
+                        == (e.cycles, e.steps, e.tier)):
+                    raise AssertionError(f"sharded {k} {b.name}: differs "
+                                         "from the plain Fleet's result")
+        per = {}
+        for c, f in sharded.items():
+            for lbl, v in f.stats.per_device().items():
+                b0 = before[c].get(lbl, {"jobs": 0, "batches": 0})
+                p = per.setdefault(lbl, {"jobs": 0, "batches": 0})
+                p["jobs"] += v["jobs"] - b0["jobs"]
+                p["batches"] += v["batches"] - b0["batches"]
+        n = sum(len(bs) for bs in subs.values())
+        st_steps = sum(steps[b.name] for bs in subs.values() for b in bs)
+        row = {"jobs": n, "wall_s": wall, "jobs_per_s": n / wall,
+               "us_per_job_step": 1e6 * wall / st_steps,
+               "job_steps": st_steps, "by_device": per}
+        out[f"sharded_{k}"] = row
+        mesh = per.get("mesh", {"jobs": 0, "batches": 0})
+        if k == "megabatch" and mesh["batches"] != 1:
+            raise AssertionError(f"sharded megabatch: {per}")
+        log(f"[sharded] (d) Fleet(devices='all'), {n_dev} device(s), {k}: "
+            f"{n} jobs in {wall:.3f}s ({row['jobs_per_s']:.1f} jobs/s), "
+            f"{row['us_per_job_step']:.2f} us a job step over {st_steps} "
+            f"job steps (phase 3c drain B {drain_b:.2f}); megabatch slabs "
+            f"{mesh['batches']} ({mesh['jobs']} jobs), lane batches "
+            + ", ".join(f"{lbl} {v['batches']} ({v['jobs']} jobs)"
+                        for lbl, v in per.items() if lbl != "mesh")
+            + "; bit-identical to the plain Fleet, every result against "
+            "the digests")
+    sharded_l = read_egpu_counters("the sharded fleet")
+
+    # (e) the per-device service: device_fail on its only device
+    zero_egpu_counters()
+    plan = FaultPlan(seed=9, device_fail=1.0)
+    svc = FleetService(cfgs["dot"], batch_size=32, devices="all",
+                       faults=plan)
+    try:
+        futs = [(b, svc.submit(b.image, b.shared_init, tdx_dim=b.tdx_dim,
+                               tag=b.name)) for b in groups["dot"]]
+        for b, f in futs:
+            outcome_held(b, f.result(timeout=600), "per-device service")
+    finally:
+        svc.close()
+    healthy = svc.healthy_devices
+    if svc.stats.failed or len(healthy) != 1 \
+            or not plan.injected.get("device_fail"):
+        raise AssertionError(f"per-device service: failed "
+                             f"{svc.stats.failed}, healthy {healthy}, "
+                             f"injected {plan.injected}")
+    out["per_device"] = {"healthy": list(healthy),
+                         "device_fail_injected": plan.injected["device_fail"]}
+    log(f"[serve] (e) FleetService(devices='all') under device_fail on "
+        f"every device: {plan.injected['device_fail']} device_fail faults, "
+        f"the last healthy device {healthy} kept serving, 0 failed")
+    service_e = read_egpu_counters("the per-device service")
+    launches = {k: service_a[0][k] + service_e[0][k] for k in service_a[0]}
+    routes = {k: {r: service_a[1][k][r] + service_e[1][k][r]
+                  for r in service_a[1][k]} for k in service_a[1]}
+    log(f"[serve] kernel launches: the service {launches}, by route "
+        f"{routes}; the sharded fleet {sharded_l[0]}, by route "
+        f"{sharded_l[1]}")
+    out.update(launches=launches, routes=routes,
+               sharded_launches=sharded_l[0], sharded_routes=sharded_l[1])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -976,6 +1218,30 @@ def egpu_counters():
     return {"wavefront_alu": wavefront_alu, "dot_product": dot_product}
 
 
+def zero_egpu_counters() -> dict:
+    counters = egpu_counters()
+    for f in counters.values():
+        f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
+    return counters
+
+
+def read_egpu_counters(label: str) -> tuple:
+    """``(launches, by route)`` of the eGPU kernels since they were
+    zeroed; fails unless each kernel launched and every launch was on
+    the ``step`` route."""
+    import torch
+    torch.cuda.synchronize()
+    counters = egpu_counters()
+    launches = {k: f.launches for k, f in counters.items()}
+    routes = {k: dict(f.by_route) for k, f in counters.items()}
+    for k, v in routes.items():
+        if v["step"] <= 0 or v["tile"] or v["step"] != launches[k]:
+            raise AssertionError(f"{k}: {label}'s launches by route {v}, "
+                                 "expected all on 'step'")
+    return launches, routes
+
+
 def step_programs(cfg, n=64) -> dict:
     """Programs of ``n`` FP steps (the five opcodes in turn) and of ``n``
     DOT/SUM steps, nothing else but STOP; rd is never ra or rb."""
@@ -998,18 +1264,23 @@ def step_programs(cfg, n=64) -> dict:
 
 def window(fn, steps: int) -> dict:
     """Device kernels and torch ops a step over one call of ``fn`` (which
-    runs ``steps`` steps), by ``torch.profiler``; and host µs a step of
-    another, unprofiled call (ended by a synchronise)."""
+    runs ``steps`` steps), by ``torch.profiler`` after one warm-up cycle
+    of it (the tracer can drop a kernel launched as it starts); and host
+    µs a step of another, unprofiled call (ended by a synchronise)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     host_us = 1e6 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         fn()
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total",
@@ -1017,6 +1288,8 @@ def window(fn, steps: int) -> dict:
     ev = prof.key_averages()
     kern = {}
     for e in ev:
+        if e.key.startswith("ProfilerStep"):     # the schedule's own span
+            continue
         if dev_us(e) > 0 and str(getattr(e, "device_type", "")
                                  ).endswith("CUDA"):
             k = re.match(r"(?:void )?([\w:]+)", e.key.replace(
@@ -1796,6 +2069,7 @@ def main(argv) -> int:
     res = run_suite(dev)
     tiers = run_tiers(dev, res)
     fleet = run_fleet(dev, tiers)
+    serving = run_serving(dev, fleet)
     profile_steps(dev)
     # the main path's launches: the interpreter and fleet_run phase's, the
     # compiled tiers', the scheduler's drains' and the optimized runs'
@@ -1803,7 +2077,10 @@ def main(argv) -> int:
     paths = {"run_program+fleet_run": (res["launches"], res["routes"]),
              "compiled_tiers": (tiers["launches"], tiers["routes"]),
              "fleet_scheduler": (fleet["launches"], fleet["routes"]),
-             "optimized_tiers": (fleet["opt_launches"], fleet["opt_routes"])}
+             "optimized_tiers": (fleet["opt_launches"], fleet["opt_routes"]),
+             "fleet_service": (serving["launches"], serving["routes"]),
+             "sharded_fleet": (serving["sharded_launches"],
+                               serving["sharded_routes"])}
     launches = {k: sum(p[0][k] for p in paths.values())
                 for k in res["launches"]}
     routes = {k: {r: sum(p[1][k][r] for p in paths.values()) for r in v}

@@ -46,6 +46,7 @@ to the reference's ``run_program`` on every leaf: superblock -> blocks
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from typing import NamedTuple
 
@@ -63,7 +64,7 @@ from .executor import (EXT_OPCODES, FP_OPCODES, HostCore, _PF_OP, _PF_RA,
                        _TC_WRITES_PRED, _TC_WRITES_RD, pad_image, sequence,
                        tables_np)
 from .isa import Op, Typ
-from .machine import MachineState, resolve_device
+from .machine import MachineState, resolve_device, sync
 from ..kernels import build, egpu_step, fp32
 from ..kernels.dot_product import ops as dops
 from ..kernels.wavefront_alu import ops as wops
@@ -724,10 +725,6 @@ _EXT_OPS = frozenset(EXT_OPCODES)
 _STEP_WRAPPERS = (wops.wavefront_alu, dops.dot_product)
 
 
-def _step_counts() -> tuple:
-    return tuple(f.by_route["step"] for f in _STEP_WRAPPERS)
-
-
 def _add_step_launches(counts) -> None:
     """Add step-route launches to the kernels' counters: those a graph
     replay executed (a replay makes no ctypes call), or, negative, those
@@ -743,6 +740,12 @@ def _norm_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+#: one capture at a time in the process: a plan captures on a stream of
+#: PyTorch's pool, which hands out its 32 streams a card round robin, so
+#: two plans being made at once may have drawn the same stream
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _Unit(NamedTuple):
@@ -766,8 +769,19 @@ class _Plan:
     16 TSC masks ``(B, 16, T)`` and the kernels' trace rows ``(L, B, 7)``
     int64 (the program's rows with the register fields clamped, as the
     reference's row op reads them).  On the card each unit is captured
-    as one CUDA graph over these buffers, and the step launches go to
-    the capture stream, prepared inside its context.
+    as one CUDA graph over these buffers on the plan's own stream, and
+    the step launches go to that stream, prepared inside its context.
+
+    The buffers are the plan's only state, so one run at a time holds
+    them (:meth:`run`): the plan's lock from the copy-in to the outputs'
+    copies and, on the card, an event: a run goes to the caller's
+    current stream after it waits for the plan's previous run, whatever
+    stream that ran on.  Captures run one at a time (:data:`_CAPTURE_LOCK`)
+    in ``thread_local`` error mode, so another thread's allocation or
+    stream synchronise does not void them (a synchronise of the whole
+    card would: nothing beside a capture makes one).  A caller that
+    enqueues on a pool stream of its own while another thread makes a
+    plan may share the capturing stream, as with ``torch.cuda.graph``.
     """
 
     def __init__(self, cp: "CompiledProgram", device: torch.device,
@@ -798,28 +812,36 @@ class _Plan:
                             for k, v in cp._host_leaves().items()}
         self.graphs = device.type == "cuda"
         self.capture_s = 0.0
-        if self.graphs:
-            if any(int(o) == Op.INVSQR for o in cp.image.op):
-                fp32._rsqrt_table(device)    # its upload cannot be captured
-            self.stream = torch.cuda.Stream(device)
-            self.pool = torch.cuda.graph_pool_handle()
+        #: step launches issued through this plan since the last reset
+        #: (a capture's, counted apart from other threads' launches)
+        self._issued = [0] * len(_STEP_WRAPPERS)
+        self._units: dict = {}
+        self.lock = threading.Lock()
+        if not self.graphs:
+            self.order = [self._unit(k) for k in cp._unit_order()]
+            self.launches = (0,) * len(_STEP_WRAPPERS)
+            return
+        if any(int(o) == Op.INVSQR for o in cp.image.op):
+            fp32._rsqrt_table(device)        # its upload cannot be captured
+        self.stream = torch.cuda.Stream(device)     # the capture stream
+        #: recorded at the end of each run, on the stream it ran on
+        self.done = torch.cuda.Event()
+        self.pool = torch.cuda.graph_pool_handle()
+        self._row0 = self.rows.data_ptr()
+        self._row_bytes = B * 7 * self.rows.element_size()
+        self._pred_ptr = self.pred.data_ptr() if cp.has_preds else 0
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            self.stream.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(self.stream):
                 # a launcher takes the current stream when it is prepared
                 self._fp = wops.fp_step_launcher(self.regs, self.masks,
                                                  FP_OPCODES)
                 self._ext = dops.ext_step_launcher(self.regs, self.masks,
                                                    EXT_OPCODES)
-            self._row0 = self.rows.data_ptr()
-            self._row_bytes = B * 7 * self.rows.element_size()
-            self._pred_ptr = self.pred.data_ptr() if cp.has_preds else 0
-        self._units: dict = {}
-        t0 = time.perf_counter()
-        if self.graphs:
-            self.stream.wait_stream(torch.cuda.current_stream(device))
-        self.order = [self._unit(k) for k in cp._unit_order()]
-        if self.graphs:
+                self.order = [self._unit(k) for k in cp._unit_order()]
             self.stream.synchronize()
-            self.capture_s = time.perf_counter() - t0
+        self.capture_s = time.perf_counter() - t0
         self.launches = tuple(sum(u.launches[i] for u in self.order)
                               for i in range(len(_STEP_WRAPPERS)))
 
@@ -827,6 +849,7 @@ class _Plan:
     def fp_step(self, pc: int) -> None:
         if self.graphs:
             self._fp(self._row0 + pc * self._row_bytes, self._pred_ptr)
+            self._issued[0] += 1
         else:
             wops.fp_step(self.regs, self.rows[pc], self.masks,
                          self.pred_arg, FP_OPCODES)
@@ -834,6 +857,7 @@ class _Plan:
     def ext_step(self, pc: int) -> None:
         if self.graphs:
             self._ext(self._row0 + pc * self._row_bytes, self._pred_ptr)
+            self._issued[1] += 1
         else:
             dops.ext_step(self.regs, self.rows[pc], self.masks,
                           self.pred_arg, EXT_OPCODES)
@@ -854,24 +878,43 @@ class _Plan:
 
         if not self.graphs:
             return _Unit(emit, (0,) * len(_STEP_WRAPPERS))
-        with torch.cuda.stream(self.stream):
-            emit()              # warm-up: lazy module loads, before capture
-            g = torch.cuda.CUDAGraph()
-            before = _step_counts()
-            g.capture_begin(pool=self.pool)
-            try:
-                emit()
-            finally:
-                g.capture_end()
-        launches = tuple(a - b for a, b in zip(_step_counts(), before))
+        emit()                  # warm-up: lazy module loads, before capture
+        g = torch.cuda.CUDAGraph()
+        self._issued = [0] * len(_STEP_WRAPPERS)
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        try:
+            emit()
+        finally:
+            g.capture_end()
+        launches = tuple(self._issued)
         _add_step_launches(tuple(-n for n in launches))
         return _Unit(g.replay, launches)
 
     # --------------------------------------------------------------- run
-    def run(self, shared: torch.Tensor, tdx: torch.Tensor) -> None:
-        """One run from a fresh state: ``shared`` ``(B, S)`` int32 and
-        ``tdx`` ``(B,)`` int32 are copied into the static buffers (never
-        consumed), then every unit runs in order."""
+    def run(self, shared: torch.Tensor, tdx: torch.Tensor,
+            sources) -> list:
+        """One run from a fresh state, returning a fresh copy of each of
+        ``sources`` (the plan's buffers, or views of them) as the run
+        left it.  ``shared`` ``(B, S)`` int32 and ``tdx`` ``(B,)`` int32
+        are copied into the static buffers (never consumed), then every
+        unit runs in order.  The plan is held from the copy-in to the
+        copies out.  On the card all of it goes to the caller's current
+        stream, which first waits for the plan's previous run (an event
+        recorded at its end, on whatever stream it ran), so two threads
+        with different current streams never interleave on the buffers.
+        (A stream of the plan's own, which the caller's stream waited on,
+        replayed the graphs about a tenth slower on the H100.)"""
+        with self.lock:
+            if self.graphs:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(self.done)
+            self._run(shared, tdx)
+            outs = [t.clone() for t in sources]
+            if self.graphs:
+                self.done.record(stream)
+        return outs
+
+    def _run(self, shared: torch.Tensor, tdx: torch.Tensor) -> None:
         S = self.cp.cfg.shared_words
         self.regs.zero_()
         self.pstack.zero_()
@@ -980,6 +1023,7 @@ class CompiledProgram:
             self.switch_dispatches = self.sim.dispatches
             self._block_path, self._seq = self._walk_blocks()
         self._plans: dict = {}
+        self._plans_lock = threading.Lock()
         self._counters = None            # EventCounters, built lazily
 
     # ---------------------------------------------------- event counters
@@ -1166,13 +1210,20 @@ class CompiledProgram:
 
     # --------------------------------------------------------------- plans
     def _plan(self, device, batch: int) -> _Plan:
+        """The plan at ``(device, batch)``, made under a lock: two
+        threads asking at once get one plan, captured once."""
         key = (device, batch)
         plan = self._plans.get(key)
         if plan is None:
-            with obs_trace.span("compile", kind="cuda_graphs"
-                                if device.type == "cuda" else "eager",
-                                tier=self.mode, batch=batch):
-                plan = self._plans[key] = _Plan(self, device, batch)
+            with self._plans_lock:
+                plan = self._plans.get(key)
+                if plan is None:
+                    with obs_trace.span("compile", kind="cuda_graphs"
+                                        if device.type == "cuda"
+                                        else "eager",
+                                        tier=self.mode, batch=batch):
+                        plan = self._plans[key] = _Plan(self, device,
+                                                        batch)
         return plan
 
     def graph_stats(self, device="cuda", batch: int = 1) -> dict:
@@ -1223,16 +1274,16 @@ class CompiledProgram:
                     hazard=self.sim.hazard,
                     hazard_violations=np.int32(self.sim.violations))
 
-    def _final(self, plan: _Plan, tdx: torch.Tensor) -> MachineState:
-        """The batched final state, every leaf a fresh tensor: the data
-        leaves copied out of the static buffers, the data-independent
-        ones out of the plan's uploaded copies."""
-        return MachineState(
-            regs=plan.regs.clone(),
-            shared=plan.shared[:, :self.cfg.shared_words].clone(),
-            pstack=plan.pstack.clone(), pdepth=plan.pdepth.clone(),
-            tdx_dim=tdx.clone(),
-            **{k: v.clone() for k, v in plan.host_leaves.items()})
+    def _final(self, plan: _Plan, sh, td) -> MachineState:
+        """Run the plan; the batched final state, every leaf a fresh
+        tensor: the data leaves copied out of the static buffers, the
+        data-independent ones out of the plan's uploaded copies."""
+        data = dict(regs=plan.regs,
+                    shared=plan.shared[:, :self.cfg.shared_words],
+                    pstack=plan.pstack, pdepth=plan.pdepth,
+                    **plan.host_leaves)
+        out = plan.run(sh, td, list(data.values()))
+        return MachineState(tdx_dim=td.clone(), **dict(zip(data, out)))
 
     def _pack(self, shared_inits: list) -> np.ndarray:
         S = self.cfg.shared_words
@@ -1243,11 +1294,6 @@ class CompiledProgram:
             buf = machine_mod.pack_shared_init(s0, S)
             shared[i, :buf.size] = buf
         return shared
-
-    def _execute(self, sh, td, dev) -> _Plan:
-        plan = self._plan(dev, sh.shape[0])
-        plan.run(sh, td)
-        return plan
 
     # ------------------------------------------------------------- public
     def run(self, *, shared_init=None, tdx_dim: int = 16,
@@ -1264,9 +1310,8 @@ class CompiledProgram:
                                       device)
         with obs_trace.span("run_compiled", tier=self.mode,
                             batch=len(shared_inits)):
-            out = self._final(self._execute(sh, td, dev), td)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            out = self._final(self._plan(dev, sh.shape[0]), sh, td)
+            sync(dev)
         return out
 
     # -------------------------------------------------------- light path
@@ -1298,9 +1343,9 @@ class CompiledProgram:
         what keeps the fleet's residency cache sound.  ``shared`` comes
         back as a fresh tensor."""
         sh, td, dev, batched = self._inputs(shared, tdx_dim, device)
-        plan = self._execute(sh, td, dev)
+        plan = self._plan(dev, sh.shape[0])
+        (out,) = plan.run(sh, td, [plan.shared[:, :self.cfg.shared_words]])
         B = plan.batch
-        out = plan.shared[:, :self.cfg.shared_words].clone()
         cyc = torch.full((B,), int(self._seq["cycles"]), dtype=torch.int32,
                          device=dev)
         halted = torch.full((B,), bool(self._seq["halted"]),
@@ -1318,8 +1363,7 @@ class CompiledProgram:
         transferred."""
         sh, cyc, halted = self.run_light_dev(
             self._pack([shared_init])[0], tdx_dim, resolve_device(device))
-        if sh.device.type == "cuda":
-            torch.cuda.synchronize(sh.device)
+        sync(sh.device)
         return sh, int(cyc), bool(halted)
 
     def run_batch_light(self, shared_inits: list, tdx_dims, device="cuda"):
@@ -1327,8 +1371,7 @@ class CompiledProgram:
         returning ``(shared (N, S), cycles (N,), halted (N,))`` only."""
         out = self.run_light_dev(self._pack(shared_inits), tdx_dims,
                                  resolve_device(device))
-        if out[0].device.type == "cuda":
-            torch.cuda.synchronize(out[0].device)
+        sync(out[0].device)
         return out
 
 
@@ -1349,6 +1392,9 @@ def _flatten(items) -> list:
 
 _CACHE: dict = {}
 _CACHE_MAX = 128
+#: the compile cache is the process's: its pop, compile and reinsert
+#: are one step, so two threads compile a program once
+_CACHE_LOCK = threading.Lock()
 
 
 def program_key(image: ProgramImage) -> bytes:
@@ -1411,23 +1457,24 @@ def compile_program(image: ProgramImage, threads: int | None = None, *,
     hint = pol.batch_class(batch_hint) if mode == "auto" else 1
     key = (image.cfg, program_key(image), threads, validate, mode, pol,
            hint)
-    hit = _CACHE.pop(key, None)          # pop + reinsert = move-to-end
-    with obs_trace.span("compile", cache_hit=hit is not None,
-                        mode=mode, threads=threads) as sp:
-        if hit is None:
-            while len(_CACHE) >= _CACHE_MAX:
-                _CACHE.pop(next(iter(_CACHE)))   # oldest entry first (LRU)
-            try:
-                hit = CompiledProgram(image, threads, validate=validate,
-                                      mode=mode, policy=pol,
-                                      batch_hint=hint)
-            except BlockCompileError as e:
-                hit = e                  # negative-cache the rejection
-        if sp.active:
-            sp.set(program=hashlib.blake2b(
-                       key[1], digest_size=4).hexdigest(),
-                   tier=getattr(hit, "mode", "rejected"))
-    _CACHE[key] = hit
+    with _CACHE_LOCK:
+        hit = _CACHE.pop(key, None)      # pop + reinsert = move-to-end
+        with obs_trace.span("compile", cache_hit=hit is not None,
+                            mode=mode, threads=threads) as sp:
+            if hit is None:
+                while len(_CACHE) >= _CACHE_MAX:
+                    _CACHE.pop(next(iter(_CACHE)))  # oldest first (LRU)
+                try:
+                    hit = CompiledProgram(image, threads, validate=validate,
+                                          mode=mode, policy=pol,
+                                          batch_hint=hint)
+                except BlockCompileError as e:
+                    hit = e              # negative-cache the rejection
+            if sp.active:
+                sp.set(program=hashlib.blake2b(
+                           key[1], digest_size=4).hexdigest(),
+                       tier=getattr(hit, "mode", "rejected"))
+        _CACHE[key] = hit
     if isinstance(hit, BlockCompileError):
         raise hit
     return hit

@@ -37,7 +37,7 @@ from .assembler import ProgramImage
 from .config import EGPUConfig
 from .isa import Op, Typ
 from .machine import (MachineState, init_numpy, resolve_device,
-                      state_to_numpy)
+                      state_to_numpy, sync)
 from ..obs import trace as obs_trace
 
 # table columns
@@ -528,6 +528,5 @@ def run_program(image: ProgramImage, state: MachineState | None = None, *,
     packed, length = pad_image(image)
     with obs_trace.span("interpret", prog_len=length, device=str(dev)):
         out = run_batch(cfg, [packed], [leaves], length, validate, dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync(dev)
     return MachineState(*(leaf[0] for leaf in out))

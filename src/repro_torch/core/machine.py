@@ -54,6 +54,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def sync(dev) -> None:
+    """Wait for the work this thread enqueued on ``dev``: its current
+    stream, never the whole card.  A device-wide synchronise is invalid
+    while another thread captures a CUDA graph (the compiled tiers'
+    plans), so nothing that can run beside a capture makes one."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
 def pack_shared_init(shared_init, shared_words: int) -> np.ndarray:
     """Coerce a shared-memory image to uint32 words (FP32 views FP bits)."""
     buf = np.asarray(shared_init)

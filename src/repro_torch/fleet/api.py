@@ -7,9 +7,10 @@
     results[h0].shared_f32(), results[h1].cycles
 
 ``Fleet`` is a thin facade over :class:`FleetScheduler`; ``run_jobs`` is
-the one-shot convenience for a fixed job list.  The multi-device fleet
-(``devices=``) and the serving loop (``serve_jobs``) are not ported yet
-and raise ``NotImplementedError`` (ROADMAP.md, queue 1, items 9 and 8).
+the one-shot convenience for a fixed job list; ``serve_jobs`` is the
+same convenience routed through the always-on serving loop
+(:class:`repro_torch.fleet.service.FleetService` — per-job futures,
+deadlines, retries, backpressure, fault isolation).
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from ..core.config import EGPUConfig
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from .scheduler import FleetScheduler, FleetStats, JobResult
+from .service import FleetService
+from .sharded import ShardedFleetScheduler
 
 
 class Fleet:
@@ -46,8 +49,13 @@ class Fleet:
     summarizes it).  Tracing never changes results.
 
     ``device`` is the card unless ``"cpu"`` is asked for; without a
-    card the constructor raises.  ``devices=`` (the sharded
-    multi-device fleet) is not ported yet.
+    card the constructor raises.  ``devices=`` shards drains across
+    local devices through
+    :class:`~repro_torch.fleet.sharded.ShardedFleetScheduler` —
+    ``"all"`` takes every card, an int the first N, or pass an explicit
+    device sequence (CPU lanes are named so).  Results stay
+    bit-identical to the single-device fleet; ``devices=None`` (default)
+    is the scheduler on ``device``.
     """
 
     def __init__(self, cfg: EGPUConfig, batch_size: int = 32, *,
@@ -58,15 +66,19 @@ class Fleet:
                  trace: bool | str | obs_trace.Tracer | None = None,
                  metrics: obs_metrics.MetricsRegistry | None = None,
                  devices: Any = None, device="cuda"):
-        if devices is not None:
-            raise NotImplementedError(
-                "devices= (the sharded multi-device fleet) is not ported "
-                "yet (ROADMAP.md, queue 1, item 9)")
-        self._sched = FleetScheduler(
-            cfg, batch_size, pack_by_cost=pack_by_cost, validate=validate,
-            use_compiler=use_compiler, compile_min=compile_min,
-            tier_policy=tier_policy, residency_max=residency_max,
-            trace=trace, metrics=metrics, device=device)
+        kw = dict(pack_by_cost=pack_by_cost,
+                  validate=validate,
+                  use_compiler=use_compiler,
+                  compile_min=compile_min,
+                  tier_policy=tier_policy,
+                  residency_max=residency_max,
+                  trace=trace, metrics=metrics)
+        if devices is None:
+            self._sched = FleetScheduler(cfg, batch_size, device=device,
+                                         **kw)
+        else:
+            self._sched = ShardedFleetScheduler(cfg, batch_size,
+                                                devices=devices, **kw)
 
     @property
     def cfg(self) -> EGPUConfig:
@@ -134,8 +146,29 @@ def run_jobs(cfg: EGPUConfig, jobs: list[dict], *,
 
 
 def serve_jobs(cfg: EGPUConfig, jobs: list[dict], *,
-               batch_size: int = 32, **service_kw):
-    """The one-shot through the always-on serving loop: not ported yet."""
-    raise NotImplementedError(
-        "serve_jobs needs fleet/service.py, not ported yet (ROADMAP.md, "
-        "queue 1, item 8)")
+               batch_size: int = 32,
+               **service_kw) -> list[JobResult | Exception]:
+    """One-shot through the serving path: submit every job dict to a
+    :class:`~repro_torch.fleet.service.FleetService`, wait for all
+    futures, and return outcomes in submission order — a
+    :class:`~repro_torch.fleet.scheduler.JobResult` per success, the
+    :class:`~repro_torch.fleet.service.JobError` per failure (every
+    future resolves; nothing raises out of this call).  Job dicts take
+    the :meth:`Fleet.submit` keywords plus ``priority`` and
+    ``deadline_s``; ``service_kw`` forwards to :class:`FleetService`
+    (``device``/``devices``, retry/backoff, admission budget, faults,
+    trace...)."""
+    with FleetService(cfg, batch_size, **service_kw) as svc:
+        futs = [svc.submit(j["image"], j.get("shared_init"),
+                           threads=j.get("threads"),
+                           tdx_dim=j.get("tdx_dim", 16),
+                           tag=j.get("tag"), weight=j.get("weight"),
+                           priority=j.get("priority", 1),
+                           deadline_s=j.get("deadline_s")) for j in jobs]
+        out: list[JobResult | Exception] = []
+        for f in futs:
+            try:
+                out.append(f.result())
+            except Exception as e:       # noqa: BLE001 — JobError by contract
+                out.append(e)
+    return out

@@ -27,7 +27,7 @@ import torch
 from ..core.assembler import ProgramImage
 from ..core.executor import pad_image, padded_length, run_batch
 from ..core.machine import (MachineState, init_numpy, resolve_device,
-                            state_to_numpy)
+                            state_to_numpy, sync)
 from ..kernels import build, egpu_step
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
@@ -174,8 +174,7 @@ def fleet_run(images: list[ProgramImage],
                                    device=label)
         if hang:
             time.sleep(hang)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync(dev)
     t_done = time.perf_counter()
     obs_metrics.observe("fleet_dispatch_seconds", t_sync - t_disp,
                         tier="interp", device=label)

@@ -63,7 +63,7 @@ from ..core.blockc import (BlockCompileError, TierPolicy, compile_program,
                            program_key)
 from ..core.config import EGPUConfig
 from ..core.executor import padded_length
-from ..core.machine import MachineState, resolve_device
+from ..core.machine import MachineState, resolve_device, sync
 from ..obs import counters as obs_counters
 from ..obs import metrics as obs_metrics
 from ..obs import recorder as obs_recorder
@@ -898,8 +898,7 @@ class FleetScheduler:
                                            device=self._dev)
                 if hang:
                     time.sleep(hang)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                sync(self.device)
             t_done = time.perf_counter()
             self._m.observe("fleet_dispatch_seconds",
                             t_sync - t_disp, tier=cp.mode,

@@ -19,7 +19,7 @@ import _torch_port as tp  # noqa: E402
 from repro_torch import programs as tprog  # noqa: E402
 from repro_torch.core import Asm, EGPUConfig, Op, executor, run_program  # noqa: E402
 from repro_torch.core.machine import state_to_numpy  # noqa: E402
-from repro_torch.fleet import fleet_run, unstack_state  # noqa: E402
+from repro_torch.fleet import fleet_run, serve_jobs, unstack_state  # noqa: E402
 from repro_torch.kernels.dot_product import ops as dops, ref as dref  # noqa: E402
 from repro_torch.kernels.wavefront_alu import ops as wops, ref as wref  # noqa: E402
 
@@ -623,3 +623,115 @@ def test_every_path_on_cuda_equals_cpu(dev, name):
     assert fleets[1].stats.compiled_batches == \
         fleets[0].stats.compiled_batches > 0
     assert fleets[1].stats.degraded_units == 0
+    # the sharded fleet over every card, and the serving loop on the card
+    sharded = Fleet(cfg, batch_size=4, tier_policy=policy, devices="all")
+    admitted = [(label, img, kw) for label, img, kw in jobs * 2
+                if label in {r.tag for r in results[0].values()}]
+    for label, img, kw in admitted:
+        sharded.submit(img, kw["shared_init"], tdx_dim=kw["tdx_dim"],
+                       tag=label)
+    for h, g in sharded.drain().items():
+        r = results[0][h]
+        assert (g.tag, g.tier, g.cycles, g.steps) \
+            == (r.tag, r.tier, r.cycles, r.steps), h
+        assert np.array_equal(g.shared, r.shared), f"sharded {name}/{r.tag}"
+    served = serve_jobs(cfg, [dict(image=img, tdx_dim=kw["tdx_dim"],
+                                   shared_init=kw["shared_init"], tag=label)
+                              for label, img, kw in admitted],
+                        batch_size=4, max_delay_s=0.001, device=dev)
+    for (label, _, _), g in zip(admitted, served):
+        assert not isinstance(g, Exception), f"served {name}/{label}: {g}"
+        exp = cpu[label]
+        assert (g.cycles, g.steps, g.hazard_violations) == (
+            int(exp["cycles"]), int(exp["steps"]),
+            int(exp["hazard_violations"])), label
+        assert np.array_equal(g.shared, exp["shared"]), f"served {label}"
+        assert np.array_equal(g.stat_cycles, exp["stat_cycles"]), label
+
+
+# ---------------------------------------------------------------------------
+# One plan from several threads, and a capture beside them
+# ---------------------------------------------------------------------------
+
+def test_plan_threads_and_capture_beside_a_synchronise(dev):
+    """Four threads, each on its own current stream (from the
+    high-priority pool, which no plan draws its stream from), run one
+    compiled program's plan through ``run_light_dev``
+    and ``run_batch`` with their own inputs, every output equal to the
+    CPU run; meanwhile one
+    thread captures plans of another program (new batch widths) while
+    another synchronises its stream and copies to the host in a loop,
+    as a drain does.  The captures must not fail and their runs must
+    equal the CPU's."""
+    import threading
+    from repro_torch.core import compile_program
+    from repro_torch.core.machine import sync
+    cfg = tp.config(EGPUConfig, "dp")
+    mm = tprog.build_matmul(cfg, 8)
+    other = tprog.build_bitonic(cfg, 16)
+    n = np.asarray(mm.shared_init).size
+    rng = np.random.default_rng(3)
+    inits = [rng.standard_normal(n).astype(np.float32) for _ in range(8)]
+    tdx = [4, 8, 16, 32] * 2
+    cp = compile_program(mm.image, mode="superblock")
+    cp._plans.clear()                    # the racing threads make it
+    exp = state_to_numpy(cp.run_batch(inits, tdx, device="cpu"))
+    cp2 = compile_program(other.image, mode="blocks")
+    cp2._plans.clear()                   # captured beside the others
+    errors, stop = [], threading.Event()
+
+    def worker(k):
+        rows = [2 * k, 2 * k + 1]
+        mine = [inits[i] for i in rows]
+        tdxs = [tdx[i] for i in rows]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev, priority=-1)):
+                for r in range(20):
+                    if r % 2:
+                        got = state_to_numpy(cp.run_batch(mine, tdxs,
+                                                          device=dev))
+                        for j, i in enumerate(rows):
+                            for f, v in got.items():
+                                assert np.array_equal(v[j], exp[f][i]), \
+                                    (k, r, f)
+                    else:
+                        out = cp.run_batch_light(mine, tdxs, device=dev)[0]
+                        words = out.cpu().numpy().view(np.uint32)
+                        for j, i in enumerate(rows):
+                            assert np.array_equal(words[j],
+                                                  exp["shared"][i]), (k, r)
+        except Exception as e:           # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def capture():
+        try:
+            for b in (1, 3, 5):
+                cp2.light_compile(np.zeros((b, cfg.shared_words), np.uint32),
+                                  np.full(b, 16, np.int32), dev)
+        except Exception as e:           # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def synchronise():
+        x = torch.ones(1024, device=dev)
+        while not stop.is_set():
+            (x + 1).cpu()
+            sync(dev)
+
+    ths = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+    ths += [threading.Thread(target=capture)]
+    syncer = threading.Thread(target=synchronise)
+    syncer.start()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+    stop.set()
+    syncer.join(timeout=60)
+    assert not any(th.is_alive() for th in ths + [syncer])
+    assert not errors, errors[0]
+    assert sorted(b for d, b in cp._plans if d.type == "cuda") == [2]
+    cpu = state_to_numpy(cp2.run_batch([other.shared_init] * 3, [16] * 3,
+                                       device="cpu"))
+    got = state_to_numpy(cp2.run_batch([other.shared_init] * 3, [16] * 3,
+                                       device=dev))
+    tp.assert_leaves_equal(cpu, got, "captured beside a synchronise")

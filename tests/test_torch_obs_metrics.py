@@ -218,10 +218,16 @@ def test_recorder_dump_rate_limit_and_loadable_json(tmp_path):
     assert len(rec.dumps) == 3
 
 
-def test_traced_drain_reports_and_stats_are_registry_views(tmp_path):
+def test_traced_drain_reports_and_stats_are_registry_views(tmp_path,
+                                                           monkeypatch):
     """The port's traced drain feeds the report (span tree, tier
     decisions, counter totals), the flight recorder sees its events,
-    and ``FleetStats`` reads the registry it exports."""
+    and ``FleetStats`` reads the registry it exports.  The drain gets a
+    compile cache of its own, so its programs are compiled (and their
+    tiers decided) inside the trace whatever ran before in the
+    process."""
+    from repro_torch.core import blockc
+    monkeypatch.setattr(blockc, "_CACHE", {})
     cfg = tp.config(EGPUConfig, "dp")
     benches = [tprog.build_reduction(cfg, 32), tprog.build_matmul(cfg, 8)]
     rec = FlightRecorder(capacity=256)

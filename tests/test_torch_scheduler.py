@@ -568,9 +568,9 @@ def test_alu16_masks_lodi_tdx_tdy():
 
 
 def test_entry_points_default_to_the_card():
-    """``Fleet``, ``FleetScheduler`` and ``fleet_run`` run on the card
-    unless asked for the CPU and raise without one; the sharded fleet
-    and the serving loop name the queue items that port them."""
+    """``Fleet``, ``FleetScheduler``, ``fleet_run``, the sharded fleet
+    (``devices="all"``) and the serving loop run on the card unless
+    asked for the CPU and raise without one; named CPU devices run."""
     img = _loop_prog()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -579,7 +579,13 @@ def test_entry_points_default_to_the_card():
             FleetScheduler(CFG)
         with pytest.raises(RuntimeError, match="CUDA"):
             fleet_run([img])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Fleet(CFG, devices="all", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve_jobs(CFG, [dict(image=img)])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Fleet(CFG, devices="all", device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_jobs(CFG, [dict(image=img)])
+    ref = run_program(img, device="cpu")
+    (served,) = serve_jobs(CFG, [dict(image=img)], device="cpu")
+    fl = Fleet(CFG, devices=[torch.device("cpu", 1)])
+    h = fl.submit(img)
+    for r in (served, fl.drain()[h]):
+        assert np.array_equal(r.shared, ref.shared.numpy().view(np.uint32))
