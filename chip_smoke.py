@@ -90,7 +90,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    serve's six exact shapes: the routed kernel, the previous design (the
    ``simt`` kernel on the same bf16 inputs), the plain version and a
    library call, with the bound; kernels and library calls by device
-   time (launches captured in a CUDA graph), the plain version eagerly.
+   time (launches captured in a CUDA graph), the plain version eagerly;
+6. LM training (``repro_torch.launch.train``), after the serve's model is
+   freed: the backward kernels against their plain versions (the
+   attention backward ``dq`` + ``dkdv`` against ``mha_ref_bwd`` over
+   ragged S, GQA G = 1, 3, 4, lengths below S, causal and not, float32
+   and bfloat16, twice bit for bit, poisoned tails; the
+   ``wavefront_matmul`` gradient products against
+   ``wavefront_matmul_ref_bwd`` with inactive tiles and a padded
+   contraction); the smoke trainer (granite and yi, float32 and
+   bfloat16, ``--init numpy``, 5 steps) against the JAX reference's
+   committed run (``src/repro_torch/training/reference_train.json``),
+   each step's loss, gradient norm and lr within
+   ``train.TOLERANCE``, and a checkpointed smoke run that restores after
+   an injected NaN; then granite-moe-3b-a800m at full width and
+   depth (bf16 compute, f32 master and AdamW state, 8 x 512 tokens, 6
+   steps, through ``train.main``), its counters (forward and backward,
+   by route) zeroed just before and read just after: every attention
+   forward (and remat recompute) on ``wgmma``, every attention backward
+   on ``dq`` + ``dkdv``, every expert GEMM and both of its gradient
+   products on ``wgmma``; losses finite and the mean of the last 3 below
+   the first; seconds a step, tokens/s, peak memory, ``train_mfu`` and
+   one more step under ``torch.profiler`` (each kernel's share of device
+   time); then the backward kernels timed at the training shapes against
+   ``torch.autograd.grad`` of ``scaled_dot_product_attention`` and
+   ``torch.bmm``, with the bound.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -104,6 +128,7 @@ parent), and prints each run and the medians.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import re
@@ -1629,6 +1654,476 @@ def check_lm_kernels(dev) -> None:
         f"zero; poisoned tails change no bit); launches by route {moved}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: LM training (granite-moe-3b-a800m, full width)
+# ---------------------------------------------------------------------------
+
+#: the backward kernels' cases: (B, H, KV, Sq, Sk, D, causal) for
+#: attention, the training call first (S = 511: ``loss_fn`` drops the
+#: last of 512 tokens); (E, M, K, N) for the expert GEMM's gradient, the
+#: training up and down projections first (capacity 818 rows, whose
+#: ``A^T`` rows need the padded contraction)
+BWD_ATTN_CASES = ((8, 24, 8, 511, 511, 64, True),
+                  (2, 2, 2, 128, 128, 64, True), (2, 6, 2, 37, 37, 12, True),
+                  (2, 4, 1, 100, 300, 128, True),
+                  (2, 8, 2, 200, 200, 64, False),
+                  (3, 24, 8, 1, 1024, 64, False),
+                  (2, 4, 4, 16, 48, 16, False),
+                  # rows with no live key: a batch entry of length 0, and
+                  # causal with Sq > Sk (the first Sq - Sk rows see no key)
+                  (3, 6, 2, 70, 70, 64, True, (70, 0, 33)),
+                  (3, 8, 2, 130, 100, 32, False, (0, 100, 41)),
+                  (2, 4, 1, 150, 90, 64, True, (90, 57)),
+                  (2, 6, 3, 100, 37, 12, True, (37, 0)))
+BWD_MM_CASES = ((40, 818, 1536, 512), (40, 818, 512, 1536), (5, 200, 48, 64),
+                (3, 300, 160, 96), (7, 9, 64, 24))
+
+
+def check_lm_backward(dev) -> dict:
+    """The backward kernels against their plain versions: the attention
+    backward (``dq`` and ``dkdv``) against ``mha_ref_bwd`` over ragged
+    S, GQA G = 1, 3, 4, lengths below S, causal and not, float32 and
+    bfloat16, twice (bit-identical), and with poisoned keys past each
+    length (no bit of dq moves; those keys' dk, dv zero); rows with no
+    live key (a length of 0, causal Sq > Sk) get a zero output and dq; the
+    ``wavefront_matmul`` gradient against ``wavefront_matmul_ref_bwd``
+    with inactive tiles and a padded contraction.  Returns the worst
+    error by kernel and the backward's routes."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {"flash_attention_bwd": 0.0, "wavefront_matmul_bwd": 0.0}
+    mm_routes = {}
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = fops.BWD_TOLERANCE[dt]
+        for case in BWD_ATTN_CASES:
+            b_, h, kv, sq, sk, d, causal = case[:7]
+            rn = lambda *sh: torch.randn(sh, generator=g, device=dev).to(dt)
+            q, kk, vv = rn(b_, h, sq, d), rn(b_, kv, sk, d), rn(b_, kv, sk, d)
+            do = rn(b_, h, sq, d)
+            lens = torch.randint(1, sk + 1, (b_,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            lens[0] = sk
+            if len(case) > 7:
+                lens = torch.tensor(case[7], dtype=torch.int32, device=dev)
+            o = fops.flash_attention(q, kk, vv, lens, causal)
+            exp = fref.mha_ref_bwd(q, kk, vv, o, do, lens, causal)
+            got = fops.attention_bwd(q, kk, vv, o, do, lens, causal)
+            again = fops.attention_bwd(q, kk, vv, o, do, lens, causal)
+            k2, v2 = kk.clone(), vv.clone()
+            for i, ln in enumerate(lens.tolist()):
+                k2[i, :, ln:] = 1e4
+                v2[i, :, ln:] = -1e4
+            poisoned = fops.attention_bwd(q, k2, v2, o, do, lens, causal)
+            torch.cuda.synchronize()
+            where = f"flash_attention backward {dt} {tuple(q.shape)} " \
+                    f"{tuple(kk.shape)} causal={causal}"
+            try:
+                for name, x, y in zip(("dq", "dk", "dv"), got, exp):
+                    worst["flash_attention_bwd"] = max(
+                        worst["flash_attention_bwd"], within(x, y, tol))
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError("two runs differ")
+                if not torch.equal(poisoned[0], got[0]):
+                    raise AssertionError("poisoned keys changed a bit of dq")
+                for i, ln in enumerate(lens.tolist()):
+                    if torch.count_nonzero(poisoned[1][i, :, ln:]) \
+                            or torch.count_nonzero(poisoned[2][i, :, ln:]):
+                        raise AssertionError("dk or dv not zero past a length")
+                    # rows with no live key: zero output, zero dq
+                    dead = sq if ln == 0 else (max(0, sq - sk) if causal
+                                               else 0)
+                    if torch.count_nonzero(o[i, :, :dead]) \
+                            or torch.count_nonzero(got[0][i, :, :dead]):
+                        raise AssertionError("a row with no live key has a "
+                                             "non-zero output or dq")
+            except AssertionError as err:
+                raise AssertionError(f"{where}: {err}") from None
+            n += 1
+        tol = mops.TOLERANCE[dt]
+        for e, m, k, nn in BWD_MM_CASES:
+            a = torch.randn((e, m, k), generator=g, device=dev).to(dt)
+            b = (torch.randn((e, k, nn), generator=g, device=dev)
+                 / k ** 0.5).to(dt)
+            dc = torch.randn((e, m, nn), generator=g, device=dev).to(dt)
+            act = torch.randint(0, 2, (e, -(-m // 128)), generator=g,
+                                device=dev, dtype=torch.int32)
+            act[0] = 1
+            before = {p: dict(r) for p, r in
+                      mops.wavefront_matmul.backward_by_route.items()}
+            da, db = mops.matmul_bwd(a, b, act, dc)
+            eda, edb = mref.wavefront_matmul_ref_bwd(a, b, act, dc)
+            torch.cuda.synchronize()
+            # dB sums M products where the forward summed K: its rounding
+            # is held at the same relative tolerance, over its own scale
+            try:
+                worst["wavefront_matmul_bwd"] = max(
+                    worst["wavefront_matmul_bwd"], within(da, eda, tol),
+                    within(db, edb, (tol[0] * m ** 0.5, tol[1])))
+                off = ~mref.tile_mask(act, m)
+                if torch.count_nonzero(da[off]):
+                    raise AssertionError("inactive tiles' dA not zero")
+            except AssertionError as err:
+                raise AssertionError(f"wavefront_matmul backward {dt} "
+                                     f"{e}x{m}x{k}x{nn}: {err}") from None
+            took = {p: [r for r, c in v.items() if c > before[p][r]] for p, v
+                    in mops.wavefront_matmul.backward_by_route.items()}
+            mm_routes[f"{dt} {e}x{m}x{k}x{nn}"] = took
+            n += 1
+    log(f"[lm-backward] flash_attention backward (dq, dkdv) and the "
+        f"wavefront_matmul gradient: {n} cases within tolerance of "
+        f"mha_ref_bwd and wavefront_matmul_ref_bwd (ragged S, GQA 1/3/4, "
+        f"lengths < S, causal and not, float32 and bfloat16; two runs "
+        f"bit-identical; poisoned tails change no bit; rows with no live key "
+        f"(a length of 0, causal Sq > Sk) zero); worst {worst}; "
+        f"gradient products' routes {mm_routes}")
+    return {"worst": worst, "routes": mm_routes}
+
+
+#: the full-width training run: granite-moe-3b-a800m, bf16 compute, f32
+#: master parameters and optimizer state, 8 x 512 tokens, 6 steps
+TRAIN = dict(arch="granite-moe-3b-a800m", batch=8, seq=512, steps=6, seed=0)
+
+
+def train_reference(dev) -> dict:
+    """The smoke trainer on the card against the JAX reference's file."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    out = train.hold_against_reference(dev)
+    for name, errs in out.items():
+        dt = name.split()[-1]
+        log(f"[train-ref] {name}: every step's loss, grad_norm and lr within "
+            f"{train.TOLERANCE[dt]} (relative) of the reference's; largest "
+            f"relative errors {errs}")
+    log(f"[train-ref] {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def train_checkpoint(dev) -> None:
+    """The smoke trainer on the card with checkpoints (async saves every 5
+    steps from card tensors) and a NaN injected at step 8: the run
+    restores the step-5 checkpoint onto the card and completes.  Only at
+    smoke size: a full-width checkpoint would be about 40 GB of files."""
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        losses = train.main(["--arch", "yi-9b", "--smoke", "--steps", "16",
+                             "--batch", "4", "--seq", "16", "--ckpt-dir", ck,
+                             "--ckpt-every", "5", "--inject-nan-at", "8",
+                             "--log-every", "100", "--device", str(dev)])
+    if len(losses) < 14 or not np.isfinite(losses).all():
+        raise AssertionError(f"checkpointed smoke run: losses {losses}")
+    log(f"[train-ckpt] yi-9b smoke on the card, NaN injected at step 8, "
+        f"restored from the step-5 checkpoint: {len(losses)} finite losses")
+
+
+def active_params(cfg) -> tuple:
+    """(active parameters a token uses, the formula): every parameter but
+    the embedding table, with the experts' weights counted for the
+    ``top_k`` of ``num_experts`` a token is routed to (expert choice's
+    capacity gives each token ``top_k`` expert slots on average)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
+    attn = d * h * hd * 2 + d * kv * hd * 2
+    experts = cfg.top_k * 3 * d * cfg.expert_d_ff
+    layer = attn + d * cfg.num_experts + experts + 2 * d
+    n = cfg.n_layers * layer + d + d * cfg.vocab
+    return n, (f"{cfg.n_layers} layers x (attention {attn} + router "
+               f"{d * cfg.num_experts} + top-{cfg.top_k} experts {experts} + "
+               f"norms {2 * d}) + ln_f {d} + unembed {d * cfg.vocab}")
+
+
+def bwd_counts() -> dict:
+    """The backward launches by kernel and route, as a copy."""
+    c = lm_counters()
+    return {"flash_attention": dict(c["flash_attention"].backward_by_route),
+            "wavefront_matmul": {p: dict(r) for p, r in
+                                 c["wavefront_matmul"].backward_by_route
+                                 .items()}}
+
+
+def zero_lm_counters() -> None:
+    for f in lm_counters().values():
+        f.launches = 0
+        f.by_route = dict.fromkeys(f.by_route, 0)
+        f.backward_launches = 0
+        f.backward_by_route = {k: (dict.fromkeys(v, 0) if isinstance(v, dict)
+                                   else 0)
+                               for k, v in f.backward_by_route.items()}
+
+
+def train_full(dev, gpu: str) -> dict:
+    """Phase 6's main path: ``repro_torch.launch.train.main`` at
+    granite-moe-3b-a800m's full width and depth, its kernel counters
+    zeroed just before and read just after."""
+    import torch
+    from repro_torch.launch import train
+    t = TRAIN
+    argv = ["--arch", t["arch"], "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--steps", str(t["steps"]), "--seed",
+            str(t["seed"]), "--log-every", "1", "--device", str(dev)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_lm_counters()
+    rec = {}
+    t0 = time.perf_counter()
+    losses = train.main(argv, record=rec)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in lm_counters().items()}
+    routes, bwd = route_counts(), bwd_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg = rec["cfg"]
+    steps = rec["steps"]
+    if len(losses) != t["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    # remat: each step runs every block forward twice (the forward and the
+    # backward's recompute) and backward once; a block has one attention
+    # and three expert GEMMs, each GEMM two gradient products
+    blocks = cfg.n_layers * t["steps"]
+    want = {"flash_attention": {"wgmma": 2 * blocks, "split": 0, "simt": 0},
+            "wavefront_matmul": {"wgmma": 6 * blocks, "small_m": 0,
+                                 "simt": 0}}
+    want_bwd = {"flash_attention": {"dq": blocks, "dkdv": blocks},
+                "wavefront_matmul": {p: {"wgmma": 3 * blocks, "small_m": 0,
+                                         "simt": 0} for p in ("da", "db")}}
+    if routes != want or bwd != want_bwd:
+        raise AssertionError(f"training launches by route {routes}, "
+                             f"backward {bwd}; expected {want}, {want_bwd}")
+    step_s = statistics.median(r["seconds"] for r in steps[1:])
+    tokens = rec["tokens_per_step"]
+    n_active, formula = active_params(cfg)
+    mfu = 6 * n_active * tokens / step_s / PEAK_BF16_S
+    for r in steps:
+        log(f"[train] step {r['step']}: loss {r['loss']:.4f} grad_norm "
+            f"{r['grad_norm']:.4f} lr {r['lr']:.3e} {r['seconds']:.3f}s")
+    log(f"[train] {cfg.name} full width and depth, bf16 compute, f32 master "
+        f"and AdamW state, {t['batch']} x {t['seq']} tokens, {t['steps']} "
+        f"steps in {wall:.1f}s (build and init included): losses finite, "
+        f"mean of the last 3 {np.mean(losses[-3:]):.4f} below the first "
+        f"{losses[0]:.4f} ({gpu})")
+    log(f"[train] seconds a step (median of steps 2-{t['steps']}) "
+        f"{step_s:.4f}; {tokens / step_s:.1f} tokens/s ({tokens} tokens a "
+        f"step); peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated) ({gpu})")
+    log(f"[train] train_mfu {100 * mfu:.2f} % = 6 x {n_active} active "
+        f"parameters x {tokens} tokens / {step_s:.4f} s / 989e12 FLOP/s; "
+        f"active parameters = {formula} ({gpu})")
+    log(f"[train] launches: forward {launches} by route {routes}; backward "
+        f"{bwd}")
+    model, opt_state, step_fn, ds = rec.pop("state")
+    shares = profile_train_step(model, opt_state, step_fn, ds, dev, gpu)
+    del model, opt_state, step_fn, rec
+    return {"cfg": cfg, "launches": launches, "routes": routes, "bwd": bwd,
+            "step_s": step_s, "tokens_s": tokens / step_s, "mfu": mfu,
+            "peak": peak, "shares": shares, "losses": losses}
+
+
+#: kernel names by the family the profile sums them into
+KERNEL_FAMILIES = (("flash_attention backward", ("fa_bwd_",)),
+                   ("flash_attention", ("fa_wgmma_kernel",
+                                        "flash_attention_kernel")),
+                   ("wavefront_matmul", ("wgmma_matmul_kernel",
+                                         "small_m_matmul_kernel",
+                                         "wavefront_matmul_kernel")))
+
+
+def profile_train_step(model, opt_state, step_fn, ds, dev, gpu) -> dict:
+    """One more full-width step (step 7, after the counted run) under
+    ``torch.profiler``: each kernel's share of the step's device time,
+    and the hand-written kernels' by family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             ds.next_batch(TRAIN["steps"]).items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, m = step_fn(model, opt_state, batch, None)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    kern = [e for e in prof.key_averages() if dev_us(e) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not kern:
+        log("[train-profile] the profiler showed no device time: not "
+            "measured")
+        return {}
+    busy = sum(dev_us(e) for e in kern)
+    fam = {}
+    for e in kern:
+        name = next((f for f, keys in KERNEL_FAMILIES
+                     if any(k in e.key for k in keys)), "other")
+        fam[name] = fam.get(name, 0) + dev_us(e)
+    shares = {k: v / busy for k, v in fam.items()}
+    log(f"[train-profile] one step: device busy {busy / 1e6:.4f}s of "
+        f"{wall:.4f}s profiled wall ({100 * busy / 1e6 / wall:.1f} % busy); "
+        f"share of device time by family: "
+        + ", ".join(f"{k} {100 * v:.1f} %" for k, v in
+                    sorted(shares.items(), key=lambda x: -x[1]))
+        + f" ({gpu})")
+    for e in sorted(kern, key=dev_us, reverse=True)[:12]:
+        log(f"[train-profile]   {100 * dev_us(e) / busy:5.1f} %  "
+            f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} {e.key[:80]}")
+    return {"busy_s": busy / 1e6, "wall_s": wall, "families": shares}
+
+
+def attn_bwd_work(q, k, lens, causal) -> tuple:
+    """(bytes, FLOPs) of the attention backward: q, k, v, o, do read once,
+    dq, dk, dv written once (four tensors of q's size, four of the live
+    keys'); 10 FLOPs a (query head, key, dim) triple the mask keeps (S
+    recomputed, dP, dV, dQ, dK: two each)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    pairs = keys = 0
+    for ln in lens.tolist():
+        lim = [min(ln, i + (sk - sq) + 1) if causal else ln
+               for i in range(sq)]
+        pairs += sum(max(0, min(x, sk)) for x in lim)
+        keys += max(0, min(max(lim), sk))
+    el = q.element_size()
+    nbytes = el * (4 * q.numel() + 4 * kv * keys * d) + 4 * lens.numel()
+    return nbytes, 10 * h * d * pairs
+
+
+def train_kernels(dev, full: dict) -> list:
+    """The backward kernels at the training shapes, held against their
+    plain versions and timed in turns: the attention backward (``dq`` +
+    ``dkdv``) against ``torch.autograd.grad`` of
+    ``scaled_dot_product_attention``; each expert-GEMM gradient product
+    (``dA``, ``dB``, up and down) against ``torch.bmm``; with the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    cfg = full["cfg"]
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    b, s = TRAIN["batch"], TRAIN["seq"] - 1
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    rn = lambda *shape, scale=1.0: (torch.randn(shape, generator=g,
+                                                device=dev) * scale).to(bf)
+    rows = []
+    # attention backward at the training call
+    q, k, v, do = rn(b, h, s, hd), rn(b, kv, s, hd), rn(b, kv, s, hd), \
+        rn(b, h, s, hd)
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    o = fops.flash_attention(q, k, v, lens, True)
+    got = fops.attention_bwd(q, k, v, o, do, lens, True)
+    exp = fref.mha_ref_bwd(q, k, v, o, do, lens, True)
+    torch.cuda.synchronize()
+    err = max(within(x, y, fops.BWD_TOLERANCE[bf]) for x, y in zip(got, exp))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                           enable_gqa=True)
+    lib = lambda: torch.autograd.grad(lib_o, (qg, kg, vg), do,
+                                      retain_graph=True)
+    kern = lambda: fops.attention_bwd(q, k, v, o, do, lens, True)
+    ms = [graph_ms(kern, reps=5, rounds=3)]
+    library_ms = time_ms(lib, reps=10, rounds=3)
+    plain_ms = time_ms(lambda: fref.mha_ref_bwd(q, k, v, o, do, lens, True),
+                       reps=2, rounds=3)
+    ms.append(graph_ms(kern, reps=5, rounds=3))
+    nbytes, flops = attn_bwd_work(q, k, lens, True)
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+           "gradient_of": "flash_attention (the TPU kernel has no backward; "
+                          "XLA differentiated src/repro/models/"
+                          "attention.py:38)",
+           "launches": sum(full["bwd"]["flash_attention"].values()),
+           "routes": full["bwd"]["flash_attention"],
+           "max_abs_err": err, "ms": statistics.median(ms),
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.autograd.grad of scaled_dot_product_attention",
+           "bound_ms": max(t_b, t_f) * 1e3,
+           "bound_by": "bytes" if t_b >= t_f else "operations",
+           "shape": [list(q.shape), list(k.shape)], "phase": "train"}
+    rows.append(row)
+    log(f"[train-timing] flash_attention backward {row['shape']}: "
+        f"{row['ms']:.4f} ms (dq + dkdv, by CUDA graph), plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (autograd of "
+        f"SDPA, eager), bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
+        f"within {fops.BWD_TOLERANCE[bf]} of mha_ref_bwd (max abs err "
+        f"{err:.3g})")
+    # the expert GEMMs' gradient products, as matmul_bwd launches them
+    cap = max(1, int(round(b * s * cfg.top_k / e)))
+    mp = -(-cap // mops.PAD_K) * mops.PAD_K
+    cases = []
+    for call, kk, nn in (("up", d, f), ("down", f, d)):
+        a, w = rn(e, cap, kk), rn(e, kk, nn, scale=kk ** -0.5)
+        dc = rn(e, cap, nn)
+        act = torch.ones((e, -(-cap // 128)), dtype=torch.int32, device=dev)
+        at = a.new_zeros((e, kk, mp))
+        at[..., :cap] = a.transpose(-1, -2)
+        dcm = a.new_zeros((e, mp, nn))
+        dcm[:, :cap] = dc
+        every = torch.ones((e, -(-kk // 128)), dtype=torch.int32, device=dev)
+        bt = w.transpose(-1, -2).contiguous()
+        eda, edb = mref.wavefront_matmul_ref_bwd(a, w, act, dc)
+        # the bound counts the function's work: dB contracts the cap
+        # rows, not the zero rows that pad them
+        cases.append((call, "da", (dc, bt, act), eda,
+                      lambda a=a, w=w, act=act, dc=dc:
+                      mref.wavefront_matmul_ref_bwd(a, w, act, dc),
+                      (dc, bt, act)))
+        cases.append((call, "db", (at, dcm, every), edb, None,
+                      (a.transpose(-1, -2), dc, every)))
+    prod_rows = []
+    for call, prod, args, exp, plain, work in cases:
+        got = mops.wavefront_matmul(*args)
+        torch.cuda.synchronize()
+        tol = mops.TOLERANCE[bf]
+        if prod == "db":
+            tol = (tol[0] * cap ** 0.5, tol[1])
+        err = within(got, exp, tol)
+        kern = lambda args=args: mops.wavefront_matmul(*args)
+        lib = lambda args=args: torch.bmm(args[0], args[1])
+        ms = [graph_ms(kern)]
+        library_ms = graph_ms(lib)
+        plain_ms = (time_ms(plain, reps=3, rounds=3) if plain is not None
+                    else None)
+        ms.append(graph_ms(kern))
+        nbytes, flops = lm_work("wavefront_matmul", work)
+        t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+        r = {"call": call, "product": prod,
+             "route": mops.route(args[0], args[1]),
+             "shape": [list(x.shape) for x in args[:2]],
+             "max_abs_err": err, "ms": statistics.median(ms),
+             "library_ms": library_ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_b, t_f) * 1e3,
+             "bound_by": "bytes" if t_b >= t_f else "operations"}
+        prod_rows.append(r)
+        log(f"[train-timing] wavefront_matmul {call} {prod} {r['shape']}: "
+            f"{r['route']} {r['ms']:.5f} ms, torch.bmm {library_ms:.5f} ms, "
+            + (f"plain (both products) {plain_ms:.4f} ms, " if plain_ms
+               else "")
+            + f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); max abs err "
+            f"{err:.3g}")
+    # the rows' launches are the main path's (``full``): the launches made
+    # here to compare and time are not counted there
+    first = prod_rows[0]
+    rows.append({"name": "wavefront_matmul_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/wavefront_matmul.cu",
+                 "replaces": "src/repro/kernels/wavefront_matmul/kernel.py:52",
+                 "gradient_of": "wavefront_matmul (dA = dC B^T and dB = A^T "
+                                "dC on the same kernel; XLA differentiated "
+                                "the reference's expert einsums)",
+                 "launches": sum(sum(v.values()) for v in
+                                 full["bwd"]["wavefront_matmul"].values()),
+                 "routes": full["bwd"]["wavefront_matmul"],
+                 "max_abs_err": max(r["max_abs_err"] for r in prod_rows),
+                 **{k: first[k] for k in ("ms", "library_ms", "bound_ms",
+                                          "bound_by", "shape")},
+                 "plain_ms": first["plain_ms"],
+                 "phase": "train", "call": "up da", "cases": prod_rows})
+    return rows
+
+
 def serve_reference(dev) -> dict:
     """The smoke serve on the card against the JAX reference's file."""
     from repro_torch.launch import serve
@@ -1661,9 +2156,7 @@ def serve_full(dev, gpu: str) -> dict:
         f"{cfg.dtype} only (drawn at {cfg.param_dtype}), built and warmed "
         f"in {time.perf_counter() - t0:.1f}s")
     counters = lm_counters()
-    for f in counters.values():
-        f.launches = 0
-        f.by_route = dict.fromkeys(f.by_route, 0)
+    zero_lm_counters()
     torch.cuda.reset_peak_memory_stats(dev)
     r = serve.generate(cfg, model, prompt, SERVE["max_new"],
                        SERVE["max_len"])
@@ -2093,6 +2586,17 @@ def main(argv) -> int:
     serve_reference(dev)
     full = serve_full(dev, gpu)
     kernels += lm_kernels_at_serve(dev, full)
+    del full                         # the serve's model is gone before phase 6
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_lm_backward(dev)
+    train_reference(dev)
+    train_checkpoint(dev)
+    trained = train_full(dev, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += train_kernels(dev, trained)
 
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,6 +15,14 @@ launches the routed kernel or raises:
   order inside the same launch;
 * ``"simt"``: everything else (float32, other head dims, short caches):
   the CUDA cores in float32.
+
+The gradient (``csrc/flash_attention_bwd.cu``, two kernels: ``dq`` a
+query tile, ``dkdv`` a key tile) runs through :func:`attention_bwd`.
+:func:`flash_attention` goes through its ``torch.autograd.Function``
+only when a gradient is wanted (grad mode on and an operand that
+requires one), so a run under ``no_grad`` (the serve) launches what it
+launched before.  On a CPU tensor the backward is :func:`.ref.
+mha_ref_bwd`.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ import math
 import torch
 
 from .. import build
-from .ref import mha_ref
+from .ref import mha_ref, mha_ref_bwd
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel against its plain version, ``|got - plain| <= atol + rtol *
@@ -32,7 +40,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: is at most 2^-7 of it
 TOLERANCE = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 MAX_HEAD_DIM = 128
+#: the backward kernels against :func:`.ref.mha_ref_bwd` (the same
+#: softmax gradient, float32 sums in other orders), per gradient: float32,
+#: whose gradients sum hundreds of products of O(1) terms with
+#: cancellation in ``dP - Delta``, within ``atol`` of the terms' scale;
+#: bfloat16, one bf16 ulp (2^-7 of the value) beyond that
+BWD_TOLERANCE = {torch.float32: (1e-4, 1e-4),
+                 torch.bfloat16: (1e-4, 2.0 ** -7)}
 ROUTES = ("wgmma", "split", "simt")
+#: the backward's kernels, counted apart from the forward's
+BWD_ROUTES = ("dq", "dkdv")
 #: query rows of one KV head (grouped heads x positions) up to which the
 #: rows are decode's, and ``split`` or ``simt`` takes them
 DECODE_ROWS = 16
@@ -69,12 +86,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(B,)`` valid key count per batch entry (``None``: all ``Sk``).  A
     query at row ``i`` sees keys ``< lengths[b]`` and, when ``causal``,
     ``<= i + (Sk - Sq)``.  Any ``Sq``, ``Sk`` and ``D <= 128``.
+    Differentiable in q, k and v (:func:`attention_bwd`).
     """
     lengths = _check(q, k, v, lengths)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, lengths, causal)
+    return _forward(q, k, v, lengths, causal)
+
+
+def _forward(q, k, v, lengths, causal):
     if q.device.type == "cpu":
         return mha_ref(q, k, v, lengths, causal).to(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return run_route(route(q, k, v), q, k, v, lengths, causal)
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel, and :func:`attention_bwd` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        out = _forward(q, k, v, lengths, causal)
+        ctx.save_for_backward(q, k, v, out, lengths)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lengths = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, do, lengths, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor,
+                  lengths: torch.Tensor | None = None,
+                  causal: bool = True):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at output gradient
+    ``do``, given the forward's output ``o``; each in its input's type.
+    A CPU tensor takes :func:`.ref.mha_ref_bwd`; a CUDA tensor launches
+    the two backward kernels or raises."""
+    lengths = _check(q, k, v, lengths)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError("o and do must have q's shape (and o its type)")
+    if q.device.type == "cpu":
+        return mha_ref_bwd(q, k, v, o, do, lengths, causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash_attention backward kernel for "
+                           f"{q.device}")
+    if any(t.device != q.device for t in (k, v, o, do, lengths)):
+        raise ValueError("all operands must be on one device")
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    q, k, v, o = (t.contiguous() for t in (q, k, v, o))
+    do = do.to(q.dtype).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    shape = (b, h, kv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    err = build.entry("flash_attention_bwd", "lm_flash_attention_bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lens.data_ptr(), dq.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *shape)
+    _count_bwd("dq")
+    build.check(err, "flash_attention backward (dq)")
+    err = build.entry("flash_attention_bwd", "lm_flash_attention_bwd_dkdv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lens.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *shape)
+    _count_bwd("dkdv")
+    build.check(err, "flash_attention backward (dkdv)")
+    return dq, dk, dv
+
+
+def _count_bwd(name: str) -> None:
+    flash_attention.backward_launches += 1
+    flash_attention.backward_by_route[name] += 1
 
 
 def run_route(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,6 +258,8 @@ def _check(q, k, v, lengths) -> torch.Tensor:
 
 
 #: kernel launches made through this wrapper (the CPU path counts none),
-#: in all and by route
+#: in all and by route; the backward's apart, by kernel
 flash_attention.launches = 0
 flash_attention.by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.backward_launches = 0
+flash_attention.backward_by_route = dict.fromkeys(BWD_ROUTES, 0)

@@ -12,13 +12,25 @@ a CUDA tensor always launches the routed kernel or raises:
 * ``"simt"``: everything else (float32 above :data:`SMALL_M` rows, where
   TF32 tensor cores would break float32's tolerance; ragged or misaligned
   rows TMA cannot read): the CUDA cores in float32.
+
+The gradient (:func:`matmul_bwd`) is two more launches of the same
+kernels: ``dA = dC @ B^T`` under the forward's ``row_active`` (an
+inactive tile's ``dA`` rows are zero, as its output was), and ``dB =
+A^T @ dC`` with ``dC`` zeroed on inactive tiles, its contracted axis
+(the forward's ``M``) padded with zero rows to a multiple of
+:data:`PAD_K`, so ``A^T``'s rows are TMA-legal and a bfloat16 ``dB``
+stays on ``wgmma``.  :func:`wavefront_matmul` goes through its
+``torch.autograd.Function`` only when a gradient is wanted, so a run
+under ``no_grad`` (the serve) launches what it launched before.  On a
+CPU tensor the backward is :func:`.ref.wavefront_matmul_ref_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import build
-from .ref import TILE_M, wavefront_matmul_ref
+from .ref import (TILE_M, tile_mask, wavefront_matmul_ref,
+                  wavefront_matmul_ref_bwd)
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel against its plain version, ``|got - plain| <= atol + rtol *
@@ -27,6 +39,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: is at most 2^-7 of it
 TOLERANCE = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 ROUTES = ("wgmma", "small_m", "simt")
+#: the backward's two products, counted apart from the forward's
+BWD_PRODUCTS = ("da", "db")
+#: ``dB``'s contracted axis is padded to a multiple of this many rows:
+#: 16-byte rows of ``A^T`` for bfloat16 (and float32)
+PAD_K = 8
 #: rows per expert up to which ``small_m`` takes the product
 SMALL_M = 16
 #: shared memory a block may use (H100, opted in), and ``small_m``'s
@@ -66,13 +83,60 @@ def wavefront_matmul(a: torch.Tensor, b: torch.Tensor,
     a: ``([E,] M, K)``, b: ``([E,] K, N)``, row_active:
     ``([E,] ceil(M / 128))``; any ``M``, ``N``, ``K`` (ragged tiles are
     masked).  The batch axis ``E`` runs one matrix per MoE expert in one
-    launch.
+    launch.  Differentiable in ``a`` and ``b`` (:func:`matmul_bwd`).
     """
     _check(a, b, row_active)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Matmul.apply(a, b, row_active)
+    return _forward(a, b, row_active)
+
+
+def _forward(a, b, row_active):
     if a.device.type == "cpu":
         return wavefront_matmul_ref(a, b, row_active)
     a, b = a.contiguous(), b.contiguous()
     return run_route(route(a, b), a, b, row_active)
+
+
+class _Matmul(torch.autograd.Function):
+    """The forward kernel, and :func:`matmul_bwd` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, row_active):
+        ctx.save_for_backward(a, b, row_active)
+        return _forward(a, b, row_active)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b, row_active = ctx.saved_tensors
+        da, db = matmul_bwd(a, b, row_active, dc)
+        return da, db, None
+
+
+def matmul_bwd(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
+               dc: torch.Tensor):
+    """``(dA, dB)`` of :func:`wavefront_matmul` at output gradient ``dc``.
+    A CPU tensor takes :func:`.ref.wavefront_matmul_ref_bwd`; a CUDA
+    tensor launches the kernel twice (the module docstring) or raises."""
+    _check(a, b, row_active)
+    if dc.shape != a.shape[:-1] + b.shape[-1:]:
+        raise ValueError(f"dc has shape {tuple(dc.shape)}")
+    if a.device.type == "cpu":
+        return wavefront_matmul_ref_bwd(a, b, row_active, dc)
+    dc = dc.to(a.dtype).contiguous()
+    bt = b.transpose(-1, -2).contiguous()
+    da = _launch(route(dc, bt), dc, bt, row_active, "da")
+    m, k = a.shape[-2], a.shape[-1]
+    mp = -(-m // PAD_K) * PAD_K
+    keep = tile_mask(row_active, m)[..., None]
+    dcm = a.new_zeros(dc.shape[:-2] + (mp, dc.shape[-1]))
+    dcm[..., :m, :] = torch.where(keep, dc, 0)
+    at = a.new_zeros(a.shape[:-2] + (k, mp))
+    at[..., :m] = a.transpose(-1, -2)
+    every = torch.ones(a.shape[:-2] + (-(-k // TILE_M),), dtype=torch.int32,
+                       device=a.device)
+    db = _launch(route(at, dcm), at, dcm, every, "db")
+    return da, db
 
 
 def run_route(name: str, a: torch.Tensor, b: torch.Tensor,
@@ -81,6 +145,13 @@ def run_route(name: str, a: torch.Tensor, b: torch.Tensor,
     kernel cannot take them.  :func:`wavefront_matmul` calls it with
     :func:`route`'s choice; a caller may name another route that takes
     the operands, to hold or time one kernel against another."""
+    return _launch(name, a, b, row_active)
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
+            row_active: torch.Tensor, product: str | None = None):
+    """:func:`run_route`, counted as the forward's launch or, with
+    ``product`` (``"da"`` or ``"db"``), as the backward's."""
     _check(a, b, row_active)
     if a.device.type != "cuda":
         raise RuntimeError(f"no wavefront_matmul kernel for {a.device}")
@@ -116,8 +187,12 @@ def run_route(name: str, a: torch.Tensor, b: torch.Tensor,
     else:
         err = build.entry("wavefront_matmul", "lm_wavefront_matmul")(
             *ptrs, int(bf16), stream)
-    wavefront_matmul.launches += 1
-    wavefront_matmul.by_route[name] += 1
+    if product is None:
+        wavefront_matmul.launches += 1
+        wavefront_matmul.by_route[name] += 1
+    else:
+        wavefront_matmul.backward_launches += 1
+        wavefront_matmul.backward_by_route[product][name] += 1
     build.check(err, f"wavefront_matmul ({name})")
     return out
 
@@ -135,6 +210,9 @@ def _check(a, b, row_active) -> None:
 
 
 #: kernel launches made through this wrapper (the CPU path counts none),
-#: in all and by route
+#: in all and by route; the backward's apart, by product and route
 wavefront_matmul.launches = 0
 wavefront_matmul.by_route = dict.fromkeys(ROUTES, 0)
+wavefront_matmul.backward_launches = 0
+wavefront_matmul.backward_by_route = {p: dict.fromkeys(ROUTES, 0)
+                                      for p in BWD_PRODUCTS}

@@ -1,10 +1,10 @@
-"""Model API for the families the port serves: ``dense`` and ``moe``.
+"""Model API for the families the port trains and serves: ``dense`` and
+``moe``.
 
-The port of ``repro/models/api.py``'s serving half.  The other families
+The port of ``repro/models/api.py``.  The other families
 (``mamba_hybrid``, ``xlstm``, ``encdec``, ``vlm``) are not ported yet
 and raise ``NotImplementedError`` (see ROADMAP.md, queue 1, item 11);
-so do the training-side ``loss`` and the mesh ``param_specs`` /
-``cache_specs``, which wait for ``training/`` and ``sharding/``.
+the mesh ``param_specs`` / ``cache_specs`` wait for ``sharding/``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
     _check(cfg)
     return transformer.Transformer.init(cfg, gen, device,
                                         keep_master=keep_master)
+
+
+def loss(cfg: ModelConfig, model: transformer.Transformer, batch):
+    """batch: ``{"tokens": (B, S)[, "mask": (B, S)]}``.  The scalar
+    next-token loss over the model's master parameters (differentiable
+    where they require a gradient)."""
+    _check(cfg)
+    return transformer.loss_fn(cfg, model.params(), batch["tokens"],
+                               mask=batch.get("mask"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,4 +1,5 @@
-"""Shared model components: config, initialisers, norms, rotary, SwiGLU.
+"""Shared model components: config, initialisers, norms, rotary, SwiGLU,
+the cross-entropy loss.
 
 The port of ``repro/models/common.py``: the same ``ModelConfig`` fields
 with torch dtypes, and the same functions on tensors.  Initialisers take
@@ -115,3 +116,16 @@ def swiglu(x, w_in, w_gate, w_out):
     h = x @ w_in
     g = x @ w_gate
     return (F.silu(g) * h) @ w_out
+
+
+def softmax_cross_entropy(logits, targets, mask=None):
+    """logits: (B, S, V); the mean negative log-likelihood of ``targets``
+    (B, S) under a float32 log-softmax, or its mean over ``mask``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -9,6 +9,9 @@ seed, with the reference's initialisers' distributions, so that a test
 can hand the same arrays to both packages (``jax.random`` and
 ``torch.Generator`` give different numbers for one seed) and the card,
 which has no JAX, can rebuild the arrays a reference run used.
+:func:`to_reference` is the inverse of :func:`from_reference`: the
+port's tree (parameters, or gradients of the same layout) as the
+reference's numpy tree.
 """
 from __future__ import annotations
 
@@ -87,3 +90,27 @@ def from_reference(cfg: ModelConfig, tree: dict, device=None, *,
     params["blocks"] = blocks
     return Transformer(cfg, params)
 
+
+def to_reference(tree) -> dict:
+    """The port's tree (a :class:`Transformer`, or a dict like its
+    :meth:`~Transformer.params`: one dict per layer in ``"blocks"``) as
+    the reference's layout: float32 numpy arrays, block leaves stacked on
+    a leading layer axis.  A ``None`` leaf (a tensor without a gradient)
+    stays ``None``."""
+    if isinstance(tree, Transformer):
+        tree = tree.params()
+
+    def leaf(t):
+        return None if t is None else \
+            t.detach().float().cpu().numpy().copy()
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([lay[k] for lay in layers]) for k in first}
+        got = [leaf(t) for t in layers]
+        return None if any(g is None for g in got) else np.stack(got)
+
+    out = {k: leaf(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = stack(tree["blocks"])
+    return out

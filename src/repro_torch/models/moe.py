@@ -15,6 +15,15 @@ Two rules keep a run repeatable and equal to the reference:
 * the expert-choice combine adds the experts' rows into the output in
   expert order, one rounding per add, as the reference's scatter-add
   does; each expert's rows go to distinct tokens, so no add races.
+
+The gradient follows the same rule: the gather of the experts' tokens
+(``flat[topi]``) backpropagates by the same expert-ordered adds (a token
+chosen by several experts sums their gradients in expert order, so the
+step repeats bit for bit), and the combine by a gather.  Both go through
+their ``torch.autograd.Function`` only when a gradient is wanted, so a
+run under ``no_grad`` (the serve) makes the ops it made before.  Under
+``remat`` the recompute chooses the same experts: :func:`top_k` is a
+stable sort of the same gates.
 """
 from __future__ import annotations
 
@@ -68,6 +77,70 @@ def route(cfg: ModelConfig, p, flat, *, mode: str = "expert_choice",
     return top_k(gates.T, cap)
 
 
+def _add_rows(out, topi, rows):
+    """``out[topi[i]] += rows[i]`` for experts i = 0, 1, ... in order:
+    ``topi`` (E, C) holds distinct tokens per expert, ``rows`` (E, C, d).
+    Returns ``out``, written in place."""
+    for i in range(topi.shape[0]):       # expert 0 first, as the reference
+        out[topi[i]] += rows[i]          # distinct tokens: one add each
+    return out
+
+
+def _gather(flat, topi):
+    """``flat[topi]`` as (E, C, d)."""
+    return flat[topi.reshape(-1)].reshape(topi.shape + flat.shape[1:])
+
+
+def _combine(ye, topi, n):
+    """The expert-ordered adds of ``ye`` (E, C, d) into (N, d)."""
+    return _add_rows(ye.new_zeros((n,) + ye.shape[2:]), topi, ye)
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`_gather`; its gradient adds in expert order."""
+
+    @staticmethod
+    def forward(ctx, flat, topi):
+        ctx.save_for_backward(topi)
+        ctx.n = flat.shape[0]
+        return _gather(flat, topi)
+
+    @staticmethod
+    def backward(ctx, g):
+        topi, = ctx.saved_tensors
+        return _combine(g, topi, ctx.n), None
+
+
+class _Combine(torch.autograd.Function):
+    """:func:`_combine`; its gradient is the gather."""
+
+    @staticmethod
+    def forward(ctx, ye, topi, n):
+        ctx.save_for_backward(topi)
+        return _combine(ye, topi, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        topi, = ctx.saved_tensors
+        return _gather(g, topi), None, None
+
+
+def _grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def aux_load_balance_loss(gate_logits_f32: torch.Tensor,
+                          top_k: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (per batch of logits).
+    The reference's loss never calls it, so neither does the port's."""
+    gates = torch.softmax(gate_logits_f32, dim=-1)
+    e = gates.shape[-1]
+    frac_routed = torch.mean(
+        F.one_hot(torch.argmax(gates, -1), e).float(), dim=0)
+    frac_gate = torch.mean(gates, dim=0)
+    return e * torch.sum(frac_routed * frac_gate)
+
+
 def moe_apply(cfg: ModelConfig, p, x, *, mode: str = "expert_choice",
               capacity_factor: float = 1.0):
     """x: (B, S, d) -> (B, S, d)."""
@@ -89,12 +162,10 @@ def moe_apply(cfg: ModelConfig, p, x, *, mode: str = "expert_choice",
         return ye.sum(0).reshape(b, s, d)                   # already weighted
 
     cap = topi.shape[1]
-    xe = flat[topi.reshape(-1)].reshape(e, cap, d)
+    xe = _Gather.apply(flat, topi) if _grad(flat) else _gather(flat, topi)
     active = torch.ones((e, -(-cap // TILE_M)), dtype=torch.int32,
                         device=x.device)
     ye = _expert_ffn(p, xe, x.dtype, active)
     ye = ye * topv[..., None].to(x.dtype)
-    out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
-    for i in range(e):                   # expert 0 first, as the reference
-        out[topi[i]] += ye[i]            # distinct tokens: one add each
+    out = _Combine.apply(ye, topi, n) if _grad(ye) else _combine(ye, topi, n)
     return out.reshape(b, s, d)

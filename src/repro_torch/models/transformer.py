@@ -1,10 +1,12 @@
-"""Decoder-only transformer (dense GQA or MoE FFN) for serving.
+"""Decoder-only transformer (dense GQA or MoE FFN): training loss, prefill
+and decode.
 
-The port of ``repro/models/transformer.py``'s parameter, prefill and
-decode paths.  :class:`Transformer` is an ``nn.Module`` that holds the
-parameters at ``cfg.param_dtype`` in a ``ModuleList`` of blocks; a Python
-loop over the blocks takes the place of ``lax.scan``, and ``remat`` (a
-training option) does not apply.  The functions below take the same
+The port of ``repro/models/transformer.py``.  :class:`Transformer` is an
+``nn.Module`` that holds the parameters at ``cfg.param_dtype`` in a
+``ModuleList`` of blocks; a Python loop over the blocks takes the place
+of ``lax.scan``, and ``remat`` (``jax.checkpoint`` of each block) is
+``torch.utils.checkpoint`` of each block, non-reentrant, when a gradient
+is wanted.  The functions below take the same
 nested dicts of tensors as the reference's pytrees (one dict per layer in
 ``params["blocks"]``).  Dense projections, the router and the
 unembedding are plain products, as the reference leaves them to XLA;
@@ -17,9 +19,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, moe
-from .common import ModelConfig, dense_init, embed_init, rms_norm, swiglu
+from .common import (ModelConfig, dense_init, embed_init, rms_norm,
+                     softmax_cross_entropy, swiglu)
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -42,13 +46,18 @@ def block_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
+def tree_map(fn, tree):
+    """``fn`` of every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def cast(tree, dtype: torch.dtype):
     """Every tensor of a parameter tree at ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: cast(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cast(v, dtype) for v in tree]
-    return tree.detach().to(dtype)
+    return tree_map(lambda t: t.detach().to(dtype), tree)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
@@ -100,15 +109,39 @@ def _embed(cfg: ModelConfig, params, tokens):
     return params["embed"].to(cfg.dtype)[tokens]
 
 
+def run_stack(cfg: ModelConfig, blocks, x, positions):
+    """The blocks in order; with ``cfg.remat`` and a gradient wanted,
+    each block under a non-reentrant ``checkpoint``: its activations are
+    rebuilt in the backward (the recompute routes the same experts:
+    ``moe.top_k`` is a stable sort)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in blocks:
+        if remat:
+            x = checkpoint(block_apply, cfg, lp, x, positions,
+                           use_reentrant=False)
+        else:
+            x = block_apply(cfg, lp, x, positions)
+    return x
+
+
 def forward(cfg: ModelConfig, params, tokens, *, positions=None):
     """tokens: (B, S).  Returns logits (B, S, V)."""
     x = _embed(cfg, params, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    for lp in params["blocks"]:
-        x = block_apply(cfg, lp, x, positions)
+    x = run_stack(cfg, params["blocks"], x, positions)
     return unembed(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, *, mask=None):
+    """Next-token cross-entropy of ``tokens`` (B, S): logits of the first
+    S - 1 positions against the last S - 1 tokens (float32 log-softmax),
+    averaged, or over ``mask``'s last S - 1 positions."""
+    tokens = tokens.long()
+    logits = forward(cfg, params, tokens[:, :-1])
+    m = mask[:, 1:] if mask is not None else None
+    return softmax_cross_entropy(logits, tokens[:, 1:], m)
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, max_len=None):
@@ -181,11 +214,17 @@ def _tree(m: nn.Module) -> dict:
 class Transformer(nn.Module):
     """The model's parameters (``embed``, ``blocks``, ``ln_f`` and, unless
     tied, ``unembed``) with :meth:`prefill` and :meth:`decode_step` over
-    a serving copy at ``cfg.dtype``, cast once (the reference casts each
-    weight at each use).  The parameters are given at ``cfg.param_dtype``
-    (the master copy, kept beside the serving copy) or, for a model that
-    only serves, already at ``cfg.dtype``: then they are the serving copy
-    and no second one is made."""
+    a serving copy at ``cfg.dtype`` (the reference casts each weight at
+    each use).  The parameters are given at ``cfg.param_dtype`` (the
+    master copy, kept beside the serving copy) or, for a model that only
+    serves, already at ``cfg.dtype``: then they are the serving copy and
+    no second one is made.  The serving copy is made again whenever a
+    parameter has changed since it was cast (a training step updates the
+    master copy in place, which moves each tensor's version counter).
+
+    The parameters do not require gradients until ``requires_grad_()``
+    (the training step calls it); the loss is :func:`loss_fn` over
+    :meth:`params`."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -196,6 +235,7 @@ class Transformer(nn.Module):
                 self.register_parameter(
                     k, nn.Parameter(params[k], requires_grad=False))
         self._serving = None
+        self._serving_key = None
 
     @classmethod
     def init(cls, cfg: ModelConfig, gen: torch.Generator, device=None, *,
@@ -211,11 +251,18 @@ class Transformer(nn.Module):
         out["blocks"] = [_tree(b) for b in self.blocks]
         return out
 
+    def _versions(self) -> tuple:
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+
     def serving_params(self) -> dict:
-        """The parameters at ``cfg.dtype``, made at first use (the
-        parameters themselves where they are at that type already)."""
-        if self._serving is None:
+        """The parameters at ``cfg.dtype`` (the parameters themselves
+        where they are at that type already), cast at first use and again
+        after any parameter has changed."""
+        key = self._versions()
+        if self._serving is None or key != self._serving_key:
+            self._serving = None             # drop the old copy first
             self._serving = cast(self.params(), self.cfg.dtype)
+            self._serving_key = key
         return self._serving
 
     @torch.no_grad()

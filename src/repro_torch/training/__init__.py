@@ -1,1 +1,4 @@
-"""Serving steps of the port (training waits for its backward kernels)."""
+"""Training and serving steps of the port: AdamW, int8 gradient
+compression, the synthetic data stream, checkpoints and the step
+builders."""
+from . import optimizer, steps, data, checkpoint, compression  # noqa: F401

@@ -474,6 +474,185 @@ def test_smoke_serve_on_cuda_holds_against_reference_file(dev):
     assert mops.wavefront_matmul.launches > m0
 
 
+# --- the backward kernels and the training step -------------------------------
+
+BWD_ATTN = [(8, 24, 8, 511, 511, 64, True),   # the granite training call
+            (2, 2, 2, 128, 128, 64, True),    # G = 1
+            (2, 6, 2, 37, 37, 12, True),      # G = 3, ragged head_dim
+            (2, 4, 1, 100, 300, 128, True),   # G = 4, Sk > Sq, head_dim 128
+            (2, 8, 2, 200, 200, 64, False),
+            (3, 24, 8, 1, 1024, 64, False),   # decode's one row
+            (2, 4, 4, 16, 48, 16, False)]
+
+
+def _attn_args(dev, dtype, b, h, kv, sq, sk, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q, k, v, do = mk(b, h, sq, d), mk(b, kv, sk, d), mk(b, kv, sk, d), \
+        mk(b, h, sq, d)
+    lens = torch.randint(1, sk + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0] = sk
+    return q, k, v, do, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", BWD_ATTN)
+def test_flash_attention_backward_kernel_equals_plain(dev, dtype, b, h, kv,
+                                                      sq, sk, d, causal):
+    """dq, dk, dv within ``BWD_TOLERANCE`` of ``mha_ref_bwd``; keys past
+    each length get zero dk, dv and change no bit of dq; two runs are
+    bit-identical; one launch of each kernel, counted apart from the
+    forward's."""
+    q, k, v, do, lens = _attn_args(dev, dtype, b, h, kv, sq, sk, d,
+                                   sq + sk + d)
+    _check_attention_bwd(q, k, v, do, lens, causal)
+
+
+#: rows with no live key: (B, H, KV, Sq, Sk, D, causal, lengths), a batch
+#: entry of length 0, and causal with Sq > Sk (the first Sq - Sk rows)
+BWD_ATTN_DEAD = [(3, 6, 2, 70, 70, 64, True, (70, 0, 33)),
+                 (3, 8, 2, 130, 100, 32, False, (0, 100, 41)),
+                 (2, 4, 1, 150, 90, 64, True, (90, 57)),
+                 (2, 6, 3, 100, 37, 12, True, (37, 0))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,lengths", BWD_ATTN_DEAD)
+def test_flash_attention_backward_rows_without_live_keys(dev, dtype, b, h,
+                                                         kv, sq, sk, d,
+                                                         causal, lengths):
+    """A row that sees no key gets a zero output and a zero dq; the keys
+    of a length-0 entry get zero dk, dv; the rest as above."""
+    q, k, v, do, _ = _attn_args(dev, dtype, b, h, kv, sq, sk, d, sq + sk)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    o, dq = _check_attention_bwd(q, k, v, do, lens, causal)
+    for i, n in enumerate(lengths):
+        dead = sq if n == 0 else (max(0, sq - sk) if causal else 0)
+        assert not torch.count_nonzero(o[i, :, :dead])
+        assert not torch.count_nonzero(dq[i, :, :dead])
+    assert any(n == 0 for n in lengths) or (causal and sq > sk)
+
+
+def _check_attention_bwd(q, k, v, do, lens, causal):
+    """The backward kernels against ``mha_ref_bwd`` (see the tests
+    above); returns the forward's output and the kernels' dq."""
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    dtype = q.dtype
+    o = fops.flash_attention(q, k, v, lens, causal)
+    fwd = fops.flash_attention.launches
+    before = dict(fops.flash_attention.backward_by_route)
+    got = fops.attention_bwd(q, k, v, o, do, lens, causal)
+    assert fops.flash_attention.launches == fwd
+    assert {r: c - before[r] for r, c in
+            fops.flash_attention.backward_by_route.items()} == \
+        {"dq": 1, "dkdv": 1}
+    exp = fref.mha_ref_bwd(q, k, v, o, do, lens, causal)
+    again = fops.attention_bwd(q, k, v, o, do, lens, causal)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, exp, again):
+        assert x.dtype == dtype
+        assert _within(x, y, fops.BWD_TOLERANCE[dtype])
+        assert torch.equal(x, z)
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, :, n:] = 1e4
+        v2[i, :, n:] = -1e4
+    p = fops.attention_bwd(q, k2, v2, o, do, lens, causal)
+    assert torch.equal(p[0], got[0])
+    for i, n in enumerate(lens.tolist()):
+        assert not torch.count_nonzero(p[1][i, :, n:])
+        assert not torch.count_nonzero(p[2][i, :, n:])
+    return o, got[0]
+
+
+def test_flash_attention_autograd_on_cuda(dev):
+    """Through ``torch.autograd``: the forward kernel, then the backward
+    kernels; under ``no_grad`` no Function is taken."""
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    q, k, v, do, lens = _attn_args(dev, torch.bfloat16, 2, 6, 2, 64, 64, 64,
+                                   1)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        assert fops.flash_attention(qg, kg, vg, lens).grad_fn is None
+    b0 = fops.flash_attention.backward_launches
+    o = fops.flash_attention(qg, kg, vg, lens)
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    assert fops.flash_attention.backward_launches == b0 + 2
+    exp = fref.mha_ref_bwd(q, k, v, o.detach(), do, lens, True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, exp):
+        assert _within(x, y, fops.BWD_TOLERANCE[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,e,m,k,n,da_route,db_route", [
+    # the granite training GEMMs: capacity 818 rows, A^T rows padded to 824
+    (torch.bfloat16, 40, 818, 1536, 512, "wgmma", "wgmma"),
+    (torch.bfloat16, 40, 818, 512, 1536, "wgmma", "wgmma"),
+    (torch.bfloat16, 5, 9, 48, 64, "small_m", "wgmma"),
+    (torch.float32, 5, 9, 48, 64, "small_m", "simt"),
+    (torch.float32, 3, 300, 160, 96, "simt", "simt"),
+    (torch.bfloat16, 3, 300, 100, 64, "simt", "wgmma")])
+def test_wavefront_matmul_gradient_each_route(dev, dtype, e, m, k, n,
+                                              da_route, db_route):
+    """Both gradient products on the kernel, counted apart by product and
+    route, against the plain backward; inactive tiles' dA zero."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    g = torch.Generator(device=dev).manual_seed(e + m + k + n)
+    a = torch.randn((e, m, k), generator=g, device=dev).to(dtype)
+    b = (torch.randn((e, k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+    dc = torch.randn((e, m, n), generator=g, device=dev).to(dtype)
+    act = torch.randint(0, 2, (e, -(-m // 128)), generator=g, device=dev,
+                        dtype=torch.int32)
+    act[0] = 1
+    fwd = mops.wavefront_matmul.launches
+    before = {p: dict(r) for p, r in
+              mops.wavefront_matmul.backward_by_route.items()}
+    da, db = mops.matmul_bwd(a, b, act, dc)
+    assert mops.wavefront_matmul.launches == fwd
+    moved = {p: {r: c - before[p][r] for r, c in v.items() if c > before[p][r]}
+             for p, v in mops.wavefront_matmul.backward_by_route.items()}
+    assert moved == {"da": {da_route: 1}, "db": {db_route: 1}}
+    eda, edb = mref.wavefront_matmul_ref_bwd(a, b, act, dc)
+    torch.cuda.synchronize()
+    tol = mops.TOLERANCE[dtype]
+    assert _within(da, eda, tol)
+    assert _within(db, edb, (tol[0] * m ** 0.5, tol[1]))
+    assert torch.count_nonzero(da[~mref.tile_mask(act, m)]) == 0
+
+
+def test_smoke_train_step_on_cuda_equals_cpu(dev):
+    """One step of granite's smoke config, float32, the same numpy weights
+    and batch on the card (kernels forward and backward) and on the CPU
+    (plain versions): the loss, gradient norm and every updated parameter
+    within float32 rounding of the sums' order."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, train
+    from repro_torch.training import data, optimizer
+    from repro_torch.training.steps import make_train_step
+    serve.float32_matmuls()
+    cfg = configs.get_smoke("granite-moe-3b-a800m").replace(
+        dtype=torch.float32)
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    batch = data.SyntheticLM(cfg, 4, 32).next_batch(0)
+    out = {}
+    for where in ("cpu", dev):
+        model = train.build_model(cfg, 0, torch.device(where), "numpy")
+        opt = optimizer.init(dict(model.named_parameters()), ocfg)
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        model, opt, _, m = make_train_step(cfg, ocfg)(model, opt, b, None)
+        out[str(where)] = (m, {k: p.detach().cpu() for k, p in
+                               model.named_parameters()})
+    (mc, pc), (mg, pg) = out["cpu"], out[str(dev)]
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(
+            float(mc[key]))
+    for k in pc:
+        # an element whose gradient is near zero moves by up to about lr
+        # either way under AdamW's normalisation
+        assert torch.allclose(pg[k], pc[k], atol=2e-3, rtol=0), k
+
+
 # ---------------------------------------------------------------------------
 # The compiled tiers (core/blockc.py): units replayed as CUDA graphs
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 loads neither ``jax`` nor anything of the JAX package ``repro``, and no
-source of the port (nor ``chip_smoke.py``) imports them."""
+source of the port (nor ``chip_smoke.py``, nor the port's examples
+``examples/*_torch.py``) imports them."""
 import os
 import pathlib
 import re
@@ -47,7 +48,9 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         list(PORT.rglob("*.py"))
-                                        + [ROOT / "chip_smoke.py"]))
+                                        + [ROOT / "chip_smoke.py"]
+                                        + list((ROOT / "examples")
+                                               .glob("*_torch.py"))))
 def test_source_has_no_forbidden_import(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path
