@@ -93,9 +93,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    time (launches captured in a CUDA graph), the plain version eagerly;
 6. LM training (``repro_torch.launch.train``), after the serve's model is
    freed: the backward kernels against their plain versions (the
-   attention backward ``dq`` + ``dkdv`` against ``mha_ref_bwd`` over
-   ragged S, GQA G = 1, 3, 4, lengths below S, causal and not, float32
-   and bfloat16, twice bit for bit, poisoned tails; the
+   attention backward ``dq`` + ``dkdv``, each route that takes the case,
+   ``wgmma`` and ``simt``, against ``mha_ref_bwd`` over ragged S, GQA
+   G = 1, 3, 4, lengths below S, causal and not, float32 and bfloat16,
+   twice bit for bit, poisoned tails, rows with no live key; the
    ``wavefront_matmul`` gradient products against
    ``wavefront_matmul_ref_bwd`` with inactive tiles and a padded
    contraction); the smoke trainer (granite and yi, float32 and
@@ -108,13 +109,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    steps, through ``train.main``), its counters (forward and backward,
    by route) zeroed just before and read just after: every attention
    forward (and remat recompute) on ``wgmma``, every attention backward
-   on ``dq`` + ``dkdv``, every expert GEMM and both of its gradient
-   products on ``wgmma``; losses finite and the mean of the last 3 below
-   the first; seconds a step, tokens/s, peak memory, ``train_mfu`` and
+   on ``dq`` + ``dkdv`` of the ``wgmma`` route, every expert GEMM and
+   both of its gradient products on ``wgmma``; losses finite and the
+   mean of the last 3 below the first; seconds a step, tokens/s, peak memory, ``train_mfu`` and
    one more step under ``torch.profiler`` (each kernel's share of device
-   time); then the backward kernels timed at the training shapes against
-   ``torch.autograd.grad`` of ``scaled_dot_product_attention`` and
-   ``torch.bmm``, with the bound.
+   time); then the backward kernels timed at the training shapes: the
+   attention backward's two routes and ``torch.autograd.grad`` of
+   ``scaled_dot_product_attention`` the same way (by CUDA graph where
+   the library's autograd captures, else all three eagerly), the
+   gradient products against ``torch.bmm``, with the bound.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -1679,21 +1682,35 @@ BWD_MM_CASES = ((40, 818, 1536, 512), (40, 818, 512, 1536), (5, 200, 48, 64),
                 (3, 300, 160, 96), (7, 9, 64, 24))
 
 
+def bwd_attn_routes(dtype, d) -> tuple:
+    """The attention backward's routes that take a case of fresh
+    (TMA-legal) tensors: ``simt`` all, ``wgmma`` bfloat16 with head_dim a
+    multiple of 16 up to ``BWD_WGMMA_HEAD_DIM``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    return tuple(r for r in fops.BWD_ROUTES if r == "simt" or (
+        dtype == torch.bfloat16 and d % 16 == 0
+        and d <= fops.BWD_WGMMA_HEAD_DIM))
+
+
 def check_lm_backward(dev) -> dict:
     """The backward kernels against their plain versions: the attention
-    backward (``dq`` and ``dkdv``) against ``mha_ref_bwd`` over ragged
-    S, GQA G = 1, 3, 4, lengths below S, causal and not, float32 and
-    bfloat16, twice (bit-identical), and with poisoned keys past each
-    length (no bit of dq moves; those keys' dk, dv zero); rows with no
-    live key (a length of 0, causal Sq > Sk) get a zero output and dq; the
-    ``wavefront_matmul`` gradient against ``wavefront_matmul_ref_bwd``
-    with inactive tiles and a padded contraction.  Returns the worst
-    error by kernel and the backward's routes."""
+    backward (``dq`` and ``dkdv``), each route that takes the case, against
+    ``mha_ref_bwd`` over ragged S, GQA G = 1, 3, 4, lengths below S, causal
+    and not, float32 and bfloat16, twice (bit-identical), and with poisoned
+    keys past each length (no bit of dq moves; those keys' dk, dv zero);
+    rows with no live key (a length of 0, causal Sq > Sk) get a zero
+    output and dq; the ``wavefront_matmul`` gradient against
+    ``wavefront_matmul_ref_bwd`` with inactive tiles and a padded
+    contraction.  Returns the worst error by kernel (the attention's by
+    route) and the backward's routes."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
     g = torch.Generator(device=dev).manual_seed(5)
-    worst = {"flash_attention_bwd": 0.0, "wavefront_matmul_bwd": 0.0}
+    worst = {"flash_attention_bwd": dict.fromkeys(fops.BWD_ROUTES, 0.0),
+             "wavefront_matmul_bwd": 0.0}
+    attn_cases = dict.fromkeys(fops.BWD_ROUTES, 0)
     mm_routes = {}
     n = 0
     for dt in (torch.float32, torch.bfloat16):
@@ -1710,38 +1727,43 @@ def check_lm_backward(dev) -> dict:
                 lens = torch.tensor(case[7], dtype=torch.int32, device=dev)
             o = fops.flash_attention(q, kk, vv, lens, causal)
             exp = fref.mha_ref_bwd(q, kk, vv, o, do, lens, causal)
-            got = fops.attention_bwd(q, kk, vv, o, do, lens, causal)
-            again = fops.attention_bwd(q, kk, vv, o, do, lens, causal)
             k2, v2 = kk.clone(), vv.clone()
             for i, ln in enumerate(lens.tolist()):
                 k2[i, :, ln:] = 1e4
                 v2[i, :, ln:] = -1e4
-            poisoned = fops.attention_bwd(q, k2, v2, o, do, lens, causal)
-            torch.cuda.synchronize()
-            where = f"flash_attention backward {dt} {tuple(q.shape)} " \
-                    f"{tuple(kk.shape)} causal={causal}"
-            try:
-                for name, x, y in zip(("dq", "dk", "dv"), got, exp):
-                    worst["flash_attention_bwd"] = max(
-                        worst["flash_attention_bwd"], within(x, y, tol))
-                if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                    raise AssertionError("two runs differ")
-                if not torch.equal(poisoned[0], got[0]):
-                    raise AssertionError("poisoned keys changed a bit of dq")
-                for i, ln in enumerate(lens.tolist()):
-                    if torch.count_nonzero(poisoned[1][i, :, ln:]) \
-                            or torch.count_nonzero(poisoned[2][i, :, ln:]):
-                        raise AssertionError("dk or dv not zero past a length")
-                    # rows with no live key: zero output, zero dq
-                    dead = sq if ln == 0 else (max(0, sq - sk) if causal
-                                               else 0)
-                    if torch.count_nonzero(o[i, :, :dead]) \
-                            or torch.count_nonzero(got[0][i, :, :dead]):
-                        raise AssertionError("a row with no live key has a "
-                                             "non-zero output or dq")
-            except AssertionError as err:
-                raise AssertionError(f"{where}: {err}") from None
-            n += 1
+            for route in bwd_attn_routes(dt, d):
+                run = lambda k_, v_: fops.run_bwd_route(
+                    route, q, k_, v_, o, do, lens, causal)
+                got, again, poisoned = run(kk, vv), run(kk, vv), run(k2, v2)
+                torch.cuda.synchronize()
+                where = f"flash_attention backward ({route}) {dt} " \
+                        f"{tuple(q.shape)} {tuple(kk.shape)} causal={causal}"
+                try:
+                    for x, y in zip(got, exp):
+                        worst["flash_attention_bwd"][route] = max(
+                            worst["flash_attention_bwd"][route],
+                            within(x, y, tol))
+                    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                        raise AssertionError("two runs differ")
+                    if not torch.equal(poisoned[0], got[0]):
+                        raise AssertionError("poisoned keys changed a bit of "
+                                             "dq")
+                    for i, ln in enumerate(lens.tolist()):
+                        if torch.count_nonzero(poisoned[1][i, :, ln:]) \
+                                or torch.count_nonzero(poisoned[2][i, :, ln:]):
+                            raise AssertionError("dk or dv not zero past a "
+                                                 "length")
+                        # rows with no live key: zero output, zero dq
+                        dead = sq if ln == 0 else (max(0, sq - sk) if causal
+                                                   else 0)
+                        if torch.count_nonzero(o[i, :, :dead]) \
+                                or torch.count_nonzero(got[0][i, :, :dead]):
+                            raise AssertionError("a row with no live key has "
+                                                 "a non-zero output or dq")
+                except AssertionError as err:
+                    raise AssertionError(f"{where}: {err}") from None
+                attn_cases[route] += 1
+                n += 1
         tol = mops.TOLERANCE[dt]
         for e, m, k, nn in BWD_MM_CASES:
             a = torch.randn((e, m, k), generator=g, device=dev).to(dt)
@@ -1772,12 +1794,15 @@ def check_lm_backward(dev) -> dict:
                     in mops.wavefront_matmul.backward_by_route.items()}
             mm_routes[f"{dt} {e}x{m}x{k}x{nn}"] = took
             n += 1
-    log(f"[lm-backward] flash_attention backward (dq, dkdv) and the "
-        f"wavefront_matmul gradient: {n} cases within tolerance of "
-        f"mha_ref_bwd and wavefront_matmul_ref_bwd (ragged S, GQA 1/3/4, "
-        f"lengths < S, causal and not, float32 and bfloat16; two runs "
-        f"bit-identical; poisoned tails change no bit; rows with no live key "
-        f"(a length of 0, causal Sq > Sk) zero); worst {worst}; "
+    if not all(attn_cases.values()):
+        raise AssertionError(f"a backward route was never checked: "
+                             f"{attn_cases}")
+    log(f"[lm-backward] flash_attention backward (dq, dkdv; cases by route "
+        f"{attn_cases}) and the wavefront_matmul gradient: {n} cases within "
+        f"tolerance of mha_ref_bwd and wavefront_matmul_ref_bwd (ragged S, "
+        f"GQA 1/3/4, lengths < S, causal and not, float32 and bfloat16; two "
+        f"runs bit-identical; poisoned tails change no bit; rows with no "
+        f"live key (a length of 0, causal Sq > Sk) zero); worst {worst}; "
         f"gradient products' routes {mm_routes}")
     return {"worst": worst, "routes": mm_routes}
 
@@ -1788,15 +1813,25 @@ TRAIN = dict(arch="granite-moe-3b-a800m", batch=8, seq=512, steps=6, seed=0)
 
 
 def train_reference(dev) -> dict:
-    """The smoke trainer on the card against the JAX reference's file."""
+    """The smoke trainer on the card against the JAX reference's file;
+    yi-9b's bf16 run (head_dim 16) takes the ``wgmma`` attention
+    backward, the rest ``simt`` (float32, granite's head_dim 12)."""
     from repro_torch.launch import train
     t0 = time.perf_counter()
+    before = bwd_counts()["flash_attention"]
     out = train.hold_against_reference(dev)
+    moved = {k: {r: c - before[k][r] for r, c in v.items()}
+             for k, v in bwd_counts()["flash_attention"].items()}
+    if not all(v["wgmma"] and v["simt"] for v in moved.values()):
+        raise AssertionError(f"smoke trainers' attention backward by route "
+                             f"{moved}: expected both routes")
     for name, errs in out.items():
         dt = name.split()[-1]
         log(f"[train-ref] {name}: every step's loss, grad_norm and lr within "
             f"{train.TOLERANCE[dt]} (relative) of the reference's; largest "
             f"relative errors {errs}")
+    log(f"[train-ref] attention backward launches by kernel and route "
+        f"{moved} (yi-9b bfloat16 on wgmma)")
     log(f"[train-ref] {time.perf_counter() - t0:.1f}s")
     return out
 
@@ -1837,10 +1872,8 @@ def active_params(cfg) -> tuple:
 def bwd_counts() -> dict:
     """The backward launches by kernel and route, as a copy."""
     c = lm_counters()
-    return {"flash_attention": dict(c["flash_attention"].backward_by_route),
-            "wavefront_matmul": {p: dict(r) for p, r in
-                                 c["wavefront_matmul"].backward_by_route
-                                 .items()}}
+    return {k: {p: dict(r) for p, r in c[k].backward_by_route.items()}
+            for k in ("flash_attention", "wavefront_matmul")}
 
 
 def zero_lm_counters() -> None:
@@ -1885,7 +1918,8 @@ def train_full(dev, gpu: str) -> dict:
     want = {"flash_attention": {"wgmma": 2 * blocks, "split": 0, "simt": 0},
             "wavefront_matmul": {"wgmma": 6 * blocks, "small_m": 0,
                                  "simt": 0}}
-    want_bwd = {"flash_attention": {"dq": blocks, "dkdv": blocks},
+    want_bwd = {"flash_attention": {k: {"wgmma": blocks, "simt": 0}
+                                    for k in ("dq", "dkdv")},
                 "wavefront_matmul": {p: {"wgmma": 3 * blocks, "small_m": 0,
                                          "simt": 0} for p in ("da", "db")}}
     if routes != want or bwd != want_bwd:
@@ -1967,6 +2001,12 @@ def profile_train_step(model, opt_state, step_fn, ds, dev, gpu) -> dict:
     for e in sorted(kern, key=dev_us, reverse=True)[:12]:
         log(f"[train-profile]   {100 * dev_us(e) / busy:5.1f} %  "
             f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} {e.key[:80]}")
+    # the attention backward by kernel: its dq and dkdv apart
+    for e in kern:
+        if "fa_bwd_" in e.key:
+            log(f"[train-profile]   attention backward {e.key[:60]}: "
+                f"{dev_us(e) / 1e3:.4f} ms in {e.count} launches, "
+                f"{dev_us(e) / 1e3 / max(1, e.count):.5f} ms each")
     return {"busy_s": busy / 1e6, "wall_s": wall, "families": shares}
 
 
@@ -1991,9 +2031,11 @@ def attn_bwd_work(q, k, lens, causal) -> tuple:
 def train_kernels(dev, full: dict) -> list:
     """The backward kernels at the training shapes, held against their
     plain versions and timed in turns: the attention backward (``dq`` +
-    ``dkdv``) against ``torch.autograd.grad`` of
-    ``scaled_dot_product_attention``; each expert-GEMM gradient product
-    (``dA``, ``dB``, up and down) against ``torch.bmm``; with the bound."""
+    ``dkdv``), its ``wgmma`` route, its ``simt`` route (the previous
+    design) and ``torch.autograd.grad`` of
+    ``scaled_dot_product_attention``, all three the same way; each
+    expert-GEMM gradient product (``dA``, ``dB``, up and down) against
+    ``torch.bmm``; with the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
@@ -2012,6 +2054,9 @@ def train_kernels(dev, full: dict) -> list:
         rn(b, h, s, hd)
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     o = fops.flash_attention(q, k, v, lens, True)
+    routed = fops.route_bwd(q, k, v, o, do)
+    if routed != "wgmma":
+        raise AssertionError(f"the training call routes to {routed}")
     got = fops.attention_bwd(q, k, v, o, do, lens, True)
     exp = fref.mha_ref_bwd(q, k, v, o, do, lens, True)
     torch.cuda.synchronize()
@@ -2021,12 +2066,28 @@ def train_kernels(dev, full: dict) -> list:
                                            enable_gqa=True)
     lib = lambda: torch.autograd.grad(lib_o, (qg, kg, vg), do,
                                       retain_graph=True)
-    kern = lambda: fops.attention_bwd(q, k, v, o, do, lens, True)
-    ms = [graph_ms(kern, reps=5, rounds=3)]
-    library_ms = time_ms(lib, reps=10, rounds=3)
+    kern = {r: (lambda r=r: fops.run_bwd_route(r, q, k, v, o, do, lens,
+                                               True))
+            for r in fops.BWD_ROUTES}
+    graph = lambda fn: graph_ms(fn, reps=5, rounds=3)
+    # both routes and the library the same way: by CUDA graph where the
+    # library's autograd captures, else all three eagerly by CUDA events
+    try:
+        library_ms = graph(lib)
+        timer, timing = graph, "CUDA graph"
+    except RuntimeError as refused:
+        torch.cuda.synchronize()
+        timer = lambda fn: time_ms(fn, reps=10, rounds=3)
+        timing = (f"eager, CUDA events (the autograd of "
+                  f"scaled_dot_product_attention does not capture: "
+                  f"{str(refused).splitlines()[0][:80]})")
+        library_ms = timer(lib)
+    ms = [timer(kern["wgmma"])]
+    simt_ms = timer(kern["simt"])
     plain_ms = time_ms(lambda: fref.mha_ref_bwd(q, k, v, o, do, lens, True),
                        reps=2, rounds=3)
-    ms.append(graph_ms(kern, reps=5, rounds=3))
+    ms.append(timer(kern["wgmma"]))
+    graph_by_route = {r: graph(kern[r]) for r in fops.BWD_ROUTES}
     nbytes, flops = attn_bwd_work(q, k, lens, True)
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
     row = {"name": "flash_attention_bwd", "route": "cuda",
@@ -2035,21 +2096,25 @@ def train_kernels(dev, full: dict) -> list:
            "gradient_of": "flash_attention (the TPU kernel has no backward; "
                           "XLA differentiated src/repro/models/"
                           "attention.py:38)",
-           "launches": sum(full["bwd"]["flash_attention"].values()),
+           "launches": sum(sum(r.values()) for r in
+                           full["bwd"]["flash_attention"].values()),
            "routes": full["bwd"]["flash_attention"],
            "max_abs_err": err, "ms": statistics.median(ms),
+           "kernel_route": "wgmma", "simt_ms": simt_ms, "timing": timing,
+           "graph_ms": graph_by_route,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library": "torch.autograd.grad of scaled_dot_product_attention",
            "bound_ms": max(t_b, t_f) * 1e3,
            "bound_by": "bytes" if t_b >= t_f else "operations",
            "shape": [list(q.shape), list(k.shape)], "phase": "train"}
     rows.append(row)
-    log(f"[train-timing] flash_attention backward {row['shape']}: "
-        f"{row['ms']:.4f} ms (dq + dkdv, by CUDA graph), plain "
-        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (autograd of "
-        f"SDPA, eager), bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
-        f"within {fops.BWD_TOLERANCE[bf]} of mha_ref_bwd (max abs err "
-        f"{err:.3g})")
+    log(f"[train-timing] flash_attention backward {row['shape']} (dq + dkdv), "
+        f"{timing}: wgmma {row['ms']:.5f} ms, simt (the previous design) "
+        f"{simt_ms:.5f} ms, library {library_ms:.5f} ms (autograd of SDPA); "
+        f"by CUDA graph wgmma {graph_by_route['wgmma']:.5f} ms, simt "
+        f"{graph_by_route['simt']:.5f} ms; plain {plain_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}); wgmma within "
+        f"{fops.BWD_TOLERANCE[bf]} of mha_ref_bwd (max abs err {err:.3g})")
     # the expert GEMMs' gradient products, as matmul_bwd launches them
     cap = max(1, int(round(b * s * cfg.top_k / e)))
     mp = -(-cap // mops.PAD_K) * mops.PAD_K
@@ -2556,6 +2621,10 @@ def main(argv) -> int:
     for kernel, fn, regs, spill, smem in ptxas_report(build.LOGS):
         log(f"[ptxas] {kernel}: {fn}: {regs} registers, {spill}, static "
             f"shared memory {smem} bytes")
+        # the attention backward's wgmma kernels are sized not to spill
+        if fn.startswith("fa_bwd_") and "wgmma" in fn and spill and \
+                re.search(r"[1-9]\d* bytes spill", spill):
+            raise AssertionError(f"{fn} spills: {spill}")
 
     worst = check_kernels(dev)
     check_step_kernels(dev)

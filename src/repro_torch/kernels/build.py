@@ -50,8 +50,8 @@ TMA_FLAGS = ()
 _GEMM = [_P] * 4 + [_LL] * 4
 _ATTN = [_P] * 5 + [_LL] * 6
 #: the attention backward: 9 pointers, B, H, KV, Sq, Sk, D, causal,
-#: scale, bf16, stream
-_ATTN_BWD = [_P] * 9 + [_LL] * 6 + [_I, _F, _I, _P]
+#: scale, then bf16 (``simt`` only) and the stream
+_ATTN_BWD = [_P] * 9 + [_LL] * 6 + [_I, _F]
 #: kernel name -> ({C entry point: its ctypes argtypes}, extra nvcc flags)
 _SIGNATURES = {
     "wavefront_alu": ({"egpu_wavefront_alu": [_P] * 5 + [_LL] * 2 + [_I, _P],
@@ -68,8 +68,14 @@ _SIGNATURES = {
                              _ATTN + [_I, _F, _I, _I, _P, _P, _P],
                          "lm_flash_attention_wgmma": _ATTN + [_I, _F, _P]},
                         TMA_FLAGS),
-    "flash_attention_bwd": ({"lm_flash_attention_bwd_dq": _ATTN_BWD,
-                             "lm_flash_attention_bwd_dkdv": _ATTN_BWD},
+    "flash_attention_bwd": ({"lm_flash_attention_bwd_dq":
+                                 _ATTN_BWD + [_I, _P],
+                             "lm_flash_attention_bwd_dkdv":
+                                 _ATTN_BWD + [_I, _P],
+                             "lm_flash_attention_bwd_dq_wgmma":
+                                 _ATTN_BWD + [_P],
+                             "lm_flash_attention_bwd_dkdv_wgmma":
+                                 _ATTN_BWD + [_P]},
                             TMA_FLAGS),
 }
 

@@ -2,8 +2,8 @@
 //
 // - TMA: tensor maps made on the host by cuTensorMapEncodeTiled, which is
 //   taken from the driver through cudaGetDriverEntryPoint (so the kernels'
-//   libraries need no -lcuda), and 3-D tile loads into shared memory that
-//   complete on an mbarrier;
+//   libraries need no -lcuda), 3-D tile loads into shared memory that
+//   complete on an mbarrier, and 1-D bulk copies that do the same;
 // - mbarriers: init, arrive, arrive with an expected byte count, and a
 //   parity wait that traps after about 20 s instead of spinning forever
 //   (a fault, not a hung card);
@@ -127,6 +127,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y),
       "r"(z)
+      : "memory");
+}
+
+// 1-D bulk copy of ``bytes`` (a multiple of 16; both addresses on 16
+// bytes) from device memory into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -16,8 +16,17 @@ launches the routed kernel or raises:
 * ``"simt"``: everything else (float32, other head dims, short caches):
   the CUDA cores in float32.
 
-The gradient (``csrc/flash_attention_bwd.cu``, two kernels: ``dq`` a
-query tile, ``dkdv`` a key tile) runs through :func:`attention_bwd`.
+The gradient (``csrc/flash_attention_bwd.cu``) runs through
+:func:`attention_bwd`: two kernels, ``dq`` a query tile and ``dkdv`` a
+key tile, on one of two routes that :func:`route_bwd` picks by an
+explicit rule (``run_bwd_route`` names one):
+
+* ``"wgmma"``: bfloat16, ``head_dim`` a multiple of 16 up to
+  :data:`BWD_WGMMA_HEAD_DIM`, TMA-legal q, k, v, o and do; TMA and
+  ``wgmma`` on the tensor cores;
+* ``"simt"``: everything else (float32, other head dims, operands TMA
+  cannot read): the CUDA cores in float32.
+
 :func:`flash_attention` goes through its ``torch.autograd.Function``
 only when a gradient is wanted (grad mode on and an operand that
 requires one), so a run under ``no_grad`` (the serve) launches what it
@@ -48,8 +57,12 @@ MAX_HEAD_DIM = 128
 BWD_TOLERANCE = {torch.float32: (1e-4, 1e-4),
                  torch.bfloat16: (1e-4, 2.0 ** -7)}
 ROUTES = ("wgmma", "split", "simt")
-#: the backward's kernels, counted apart from the forward's
-BWD_ROUTES = ("dq", "dkdv")
+#: the backward's routes, and its two kernels (each launch counted by
+#: kernel and route, apart from the forward's)
+BWD_ROUTES = ("wgmma", "simt")
+BWD_KERNELS = ("dq", "dkdv")
+#: the widest head_dim the backward's ``wgmma`` kernels take
+BWD_WGMMA_HEAD_DIM = 128
 #: query rows of one KV head (grouped heads x positions) up to which the
 #: rows are decode's, and ``split`` or ``simt`` takes them
 DECODE_ROWS = 16
@@ -119,6 +132,19 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def route_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, do: torch.Tensor) -> str:
+    """The route that computes the attention's gradient: ``"wgmma"`` or
+    ``"simt"`` (see the module docstring).  A pure function of the
+    operands' type, shape, layout and alignment."""
+    d = q.shape[-1]
+    if all(t.dtype == torch.bfloat16 for t in (q, k, v, o, do)) \
+            and d % 16 == 0 and 0 < d <= BWD_WGMMA_HEAD_DIM \
+            and build.tma_legal(q, k, v, o, do):
+        return "wgmma"
+    return "simt"
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, do: torch.Tensor,
                   lengths: torch.Tensor | None = None,
@@ -126,12 +152,25 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of :func:`flash_attention` at output gradient
     ``do``, given the forward's output ``o``; each in its input's type.
     A CPU tensor takes :func:`.ref.mha_ref_bwd`; a CUDA tensor launches
-    the two backward kernels or raises."""
-    lengths = _check(q, k, v, lengths)
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
-        raise ValueError("o and do must have q's shape (and o its type)")
+    the two kernels of :func:`route_bwd`'s route or raises."""
+    lengths = _check_bwd(q, k, v, o, do, lengths)
     if q.device.type == "cpu":
         return mha_ref_bwd(q, k, v, o, do, lengths, causal)
+    q, k, v, o = (t.contiguous() for t in (q, k, v, o))
+    do = do.to(q.dtype).contiguous()
+    return run_bwd_route(route_bwd(q, k, v, o, do), q, k, v, o, do, lengths,
+                         causal)
+
+
+def run_bwd_route(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                  lengths: torch.Tensor | None = None, causal: bool = True):
+    """Launch backward route ``name``'s two kernels (``dq``, then
+    ``dkdv``) on CUDA tensors; raises if that route cannot take them.
+    :func:`attention_bwd` calls it with :func:`route_bwd`'s choice; a
+    caller may name another route that takes the operands, to hold or
+    time one design against another."""
+    lengths = _check_bwd(q, k, v, o, do, lengths)
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash_attention backward kernel for "
                            f"{q.device}")
@@ -143,33 +182,47 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
     q, k, v, o = (t.contiguous() for t in (q, k, v, o))
     do = do.to(q.dtype).contiguous()
+    if name not in BWD_ROUTES:
+        raise ValueError(f"unknown backward route {name!r}; routes are "
+                         f"{BWD_ROUTES}")
+    if name == "wgmma" and route_bwd(q, k, v, o, do) != "wgmma":
+        raise ValueError("backward route wgmma takes bfloat16, head_dim a "
+                         f"multiple of 16 up to {BWD_WGMMA_HEAD_DIM} and "
+                         "TMA-legal q, k, v, o, do")
     lens = lengths.to(torch.int32).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    shape = (b, h, kv, sq, sk, d, int(causal), 1.0 / math.sqrt(d),
-             int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    err = build.entry("flash_attention_bwd", "lm_flash_attention_bwd_dq")(
+    # each row's lse and Delta, from dq for dkdv; the wgmma route's rows
+    # padded to whole 64-row tiles, which its dkdv reads by bulk copy
+    rows = sq if name == "simt" else -(-sq // _KEYS_PER_TILE) * _KEYS_PER_TILE
+    lse, delta = torch.empty((2, b, h, rows), dtype=torch.float32,
+                             device=q.device)
+    shape = (b, h, kv, sq, sk, d, int(causal), 1.0 / math.sqrt(d))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (int(q.dtype == torch.bfloat16), stream) if name == "simt" \
+        else (stream,)
+    suffix = "_wgmma" if name == "wgmma" else ""
+    err = build.entry("flash_attention_bwd",
+                      f"lm_flash_attention_bwd_dq{suffix}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lens.data_ptr(), dq.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *shape)
-    _count_bwd("dq")
-    build.check(err, "flash_attention backward (dq)")
-    err = build.entry("flash_attention_bwd", "lm_flash_attention_bwd_dkdv")(
+        delta.data_ptr(), *shape, *tail)
+    _count_bwd("dq", name)
+    build.check(err, f"flash_attention backward (dq, {name})")
+    err = build.entry("flash_attention_bwd",
+                      f"lm_flash_attention_bwd_dkdv{suffix}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lens.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *shape)
-    _count_bwd("dkdv")
-    build.check(err, "flash_attention backward (dkdv)")
+        dv.data_ptr(), *shape, *tail)
+    _count_bwd("dkdv", name)
+    build.check(err, f"flash_attention backward (dkdv, {name})")
     return dq, dk, dv
 
 
-def _count_bwd(name: str) -> None:
+def _count_bwd(kernel: str, name: str) -> None:
     flash_attention.backward_launches += 1
-    flash_attention.backward_by_route[name] += 1
+    flash_attention.backward_by_route[kernel][name] += 1
 
 
 def run_route(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -238,6 +291,14 @@ def _counters(device, stream: int, n: int) -> torch.Tensor:
     return have
 
 
+def _check_bwd(q, k, v, o, do, lengths) -> torch.Tensor:
+    """Validate the backward's operands; returns ``lengths``."""
+    lengths = _check(q, k, v, lengths)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError("o and do must have q's shape (and o its type)")
+    return lengths
+
+
 def _check(q, k, v, lengths) -> torch.Tensor:
     """Validate the operands; returns ``lengths`` (all ``Sk`` for
     ``None``)."""
@@ -258,8 +319,9 @@ def _check(q, k, v, lengths) -> torch.Tensor:
 
 
 #: kernel launches made through this wrapper (the CPU path counts none),
-#: in all and by route; the backward's apart, by kernel
+#: in all and by route; the backward's apart, by kernel and route
 flash_attention.launches = 0
 flash_attention.by_route = dict.fromkeys(ROUTES, 0)
 flash_attention.backward_launches = 0
-flash_attention.backward_by_route = dict.fromkeys(BWD_ROUTES, 0)
+flash_attention.backward_by_route = {k: dict.fromkeys(BWD_ROUTES, 0)
+                                     for k in BWD_KERNELS}

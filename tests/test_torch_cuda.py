@@ -496,17 +496,33 @@ def _attn_args(dev, dtype, b, h, kv, sq, sk, d, seed):
     return q, k, v, do, lens
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", BWD_ATTN)
-def test_flash_attention_backward_kernel_equals_plain(dev, dtype, b, h, kv,
-                                                      sq, sk, d, causal):
-    """dq, dk, dv within ``BWD_TOLERANCE`` of ``mha_ref_bwd``; keys past
-    each length get zero dk, dv and change no bit of dq; two runs are
-    bit-identical; one launch of each kernel, counted apart from the
-    forward's."""
+def _bwd_routes(cases):
+    """(dtype, backward route, *case) for each backward route that takes
+    the case: ``simt`` all, ``wgmma`` bfloat16 with head_dim a multiple of
+    16 up to ``BWD_WGMMA_HEAD_DIM`` (fresh tensors are TMA-legal)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases:
+            d = case[5]
+            for route in fops.BWD_ROUTES:
+                if route == "simt" or (dtype == torch.bfloat16 and d % 16 == 0
+                                       and d <= fops.BWD_WGMMA_HEAD_DIM):
+                    out.append((dtype, route, *case))
+    return out
+
+
+@pytest.mark.parametrize("dtype,route,b,h,kv,sq,sk,d,causal",
+                         _bwd_routes(BWD_ATTN))
+def test_flash_attention_backward_kernel_equals_plain(dev, dtype, route, b, h,
+                                                      kv, sq, sk, d, causal):
+    """Each backward route's dq, dk, dv within ``BWD_TOLERANCE`` of
+    ``mha_ref_bwd``; keys past each length get zero dk, dv and change no
+    bit of dq; two runs are bit-identical; one launch of each kernel on
+    that route, counted apart from the forward's."""
     q, k, v, do, lens = _attn_args(dev, dtype, b, h, kv, sq, sk, d,
                                    sq + sk + d)
-    _check_attention_bwd(q, k, v, do, lens, causal)
+    _check_attention_bwd(q, k, v, do, lens, causal, route)
 
 
 #: rows with no live key: (B, H, KV, Sq, Sk, D, causal, lengths), a batch
@@ -517,16 +533,16 @@ BWD_ATTN_DEAD = [(3, 6, 2, 70, 70, 64, True, (70, 0, 33)),
                  (2, 6, 3, 100, 37, 12, True, (37, 0))]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,lengths", BWD_ATTN_DEAD)
-def test_flash_attention_backward_rows_without_live_keys(dev, dtype, b, h,
-                                                         kv, sq, sk, d,
+@pytest.mark.parametrize("dtype,route,b,h,kv,sq,sk,d,causal,lengths",
+                         _bwd_routes(BWD_ATTN_DEAD))
+def test_flash_attention_backward_rows_without_live_keys(dev, dtype, route, b,
+                                                         h, kv, sq, sk, d,
                                                          causal, lengths):
     """A row that sees no key gets a zero output and a zero dq; the keys
-    of a length-0 entry get zero dk, dv; the rest as above."""
+    of a length-0 entry get zero dk, dv; the rest as above, each route."""
     q, k, v, do, _ = _attn_args(dev, dtype, b, h, kv, sq, sk, d, sq + sk)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    o, dq = _check_attention_bwd(q, k, v, do, lens, causal)
+    o, dq = _check_attention_bwd(q, k, v, do, lens, causal, route)
     for i, n in enumerate(lengths):
         dead = sq if n == 0 else (max(0, sq - sk) if causal else 0)
         assert not torch.count_nonzero(o[i, :, :dead])
@@ -534,21 +550,36 @@ def test_flash_attention_backward_rows_without_live_keys(dev, dtype, b, h,
     assert any(n == 0 for n in lengths) or (causal and sq > sk)
 
 
-def _check_attention_bwd(q, k, v, do, lens, causal):
-    """The backward kernels against ``mha_ref_bwd`` (see the tests
-    above); returns the forward's output and the kernels' dq."""
+def _bwd_moved(before):
+    """The backward launches since ``before``, by kernel and route."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    return {kn: {r: c - before[kn][r] for r, c in rs.items()}
+            for kn, rs in fops.flash_attention.backward_by_route.items()}
+
+
+def _bwd_counts():
+    from repro_torch.kernels.flash_attention import ops as fops
+    return {kn: dict(rs) for kn, rs in
+            fops.flash_attention.backward_by_route.items()}
+
+
+def _check_attention_bwd(q, k, v, do, lens, causal, route):
+    """Backward route ``route``'s kernels against ``mha_ref_bwd`` (see
+    the tests above); returns the forward's output and the kernels'
+    dq."""
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     dtype = q.dtype
     o = fops.flash_attention(q, k, v, lens, causal)
     fwd = fops.flash_attention.launches
-    before = dict(fops.flash_attention.backward_by_route)
-    got = fops.attention_bwd(q, k, v, o, do, lens, causal)
+    before = _bwd_counts()
+    run = lambda k_, v_: fops.run_bwd_route(route, q, k_, v_, o, do, lens,
+                                            causal)
+    got = run(k, v)
     assert fops.flash_attention.launches == fwd
-    assert {r: c - before[r] for r, c in
-            fops.flash_attention.backward_by_route.items()} == \
-        {"dq": 1, "dkdv": 1}
+    one = {r: int(r == route) for r in fops.BWD_ROUTES}
+    assert _bwd_moved(before) == {"dq": one, "dkdv": one}
     exp = fref.mha_ref_bwd(q, k, v, o, do, lens, causal)
-    again = fops.attention_bwd(q, k, v, o, do, lens, causal)
+    again = run(k, v)
     torch.cuda.synchronize()
     for x, y, z in zip(got, exp, again):
         assert x.dtype == dtype
@@ -558,7 +589,7 @@ def _check_attention_bwd(q, k, v, do, lens, causal):
     for i, n in enumerate(lens.tolist()):
         k2[i, :, n:] = 1e4
         v2[i, :, n:] = -1e4
-    p = fops.attention_bwd(q, k2, v2, o, do, lens, causal)
+    p = run(k2, v2)
     assert torch.equal(p[0], got[0])
     for i, n in enumerate(lens.tolist()):
         assert not torch.count_nonzero(p[1][i, :, n:])
@@ -568,17 +599,20 @@ def _check_attention_bwd(q, k, v, do, lens, causal):
 
 def test_flash_attention_autograd_on_cuda(dev):
     """Through ``torch.autograd``: the forward kernel, then the backward
-    kernels; under ``no_grad`` no Function is taken."""
+    kernels, bfloat16 on the ``wgmma`` route; under ``no_grad`` no
+    Function is taken."""
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     q, k, v, do, lens = _attn_args(dev, torch.bfloat16, 2, 6, 2, 64, 64, 64,
                                    1)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     with torch.no_grad():
         assert fops.flash_attention(qg, kg, vg, lens).grad_fn is None
-    b0 = fops.flash_attention.backward_launches
+    b0, before = fops.flash_attention.backward_launches, _bwd_counts()
     o = fops.flash_attention(qg, kg, vg, lens)
     got = torch.autograd.grad(o, (qg, kg, vg), do)
     assert fops.flash_attention.backward_launches == b0 + 2
+    on_wgmma = {"wgmma": 1, "simt": 0}
+    assert _bwd_moved(before) == {"dq": on_wgmma, "dkdv": on_wgmma}
     exp = fref.mha_ref_bwd(q, k, v, o.detach(), do, lens, True)
     torch.cuda.synchronize()
     for x, y in zip(got, exp):

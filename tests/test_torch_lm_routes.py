@@ -12,7 +12,10 @@ The ``wgmma`` attention rounds P to bfloat16 as a hi + lo pair for the
 P V product; :func:`hilo_attention` models that kernel's arithmetic in
 plain torch (64-key tiles, online softmax, two bf16 products into one
 float32 sum) and is held within ``ops.TOLERANCE[bfloat16]`` of
-``mha_ref``.  No JAX is needed: ``mha_ref`` is tied to the reference by
+``mha_ref``.  The ``wgmma`` backward rounds both P and dS so;
+:func:`hilo_attention_bwd` models its two kernels and is held within
+``ops.BWD_TOLERANCE[bfloat16]`` of ``mha_ref_bwd``, where one bf16 P or
+dS is not.  No JAX is needed: ``mha_ref`` is tied to the reference by
 ``tests/test_torch_lm_kernels.py``.  The kernels themselves run on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -231,3 +234,231 @@ def test_hilo_masked_keys_change_no_bit(causal):
         k2[i, :, n:] = 1e4
         v2[i, :, n:] = -1e4
     assert torch.equal(hilo_attention(q, k2, v2, lens, causal), got)
+
+
+# --- flash_attention.route_bwd ----------------------------------------------
+
+@pytest.mark.parametrize("q,kv,dtype,want", [
+    # the granite training call (S 511: the loss drops the last token)
+    ((8, 24, 511, 64), (8, 8, 511, 64), BF, "wgmma"),
+    ((8, 24, 511, 64), (8, 8, 511, 64), F32, "simt"),
+    # head_dim: 16 and 128 are taken, 12, 40 and 160 not
+    ((2, 4, 100, 128), (2, 1, 300, 128), BF, "wgmma"),
+    ((2, 4, 16, 16), (2, 4, 48, 16), BF, "wgmma"),
+    ((2, 6, 37, 12), (2, 2, 37, 12), BF, "simt"),
+    ((2, 2, 64, 40), (2, 2, 64, 40), BF, "simt"),
+    ((2, 2, 64, 160), (2, 2, 64, 160), BF, "simt"),
+    # decode's one row: the backward has no decode route
+    ((3, 24, 1, 64), (3, 8, 1024, 64), BF, "wgmma"),
+])
+def test_attention_route_bwd(q, kv, dtype, want):
+    qq, oo, do = (_z(*q, dtype=dtype) for _ in range(3))
+    assert fops.route_bwd(qq, _z(*kv, dtype=dtype), _z(*kv, dtype=dtype),
+                          oo, do) == want
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "o", "do"])
+def test_attention_route_bwd_misaligned_base_is_simt(which):
+    shapes = {"q": (2, 4, 128, 64), "k": (2, 2, 128, 64),
+              "v": (2, 2, 128, 64), "o": (2, 4, 128, 64),
+              "do": (2, 4, 128, 64)}
+    t = {n: (_misaligned(*s) if n == which else _z(*s))
+         for n, s in shapes.items()}
+    assert fops.route_bwd(*t.values()) == "simt"
+
+
+@pytest.mark.parametrize("which", ["q", "do"])
+def test_attention_route_bwd_non_contiguous_is_simt(which):
+    """A transposed operand is not TMA-legal as it is (``attention_bwd``
+    makes it contiguous first, and then takes ``wgmma``)."""
+    t = {n: _z(2, 4, 128, 64) for n in ("q", "o", "do")}
+    t[which] = _z(2, 4, 64, 128).transpose(2, 3)
+    assert not t[which].is_contiguous()
+    k, v = _z(2, 2, 128, 64), _z(2, 2, 128, 64)
+    assert fops.route_bwd(t["q"], k, v, t["o"], t["do"]) == "simt"
+    t[which] = t[which].contiguous()
+    assert fops.route_bwd(t["q"], k, v, t["o"], t["do"]) == "wgmma"
+
+
+def test_attention_route_bwd_mixed_types_is_simt():
+    """o or do in another type than bfloat16 goes to ``simt``."""
+    q, k, v = _z(2, 4, 128, 64), _z(2, 2, 128, 64), _z(2, 2, 128, 64)
+    assert fops.route_bwd(q, k, v, q, _z(2, 4, 128, 64, dtype=F32)) == "simt"
+    assert fops.route_bwd(q, k, v, _z(2, 4, 128, 64, dtype=F32), q) == "simt"
+
+
+def test_cpu_backward_counts_no_route():
+    """On the CPU ``attention_bwd`` is the plain version: no launch is
+    counted, and the counters are by kernel and route."""
+    before = {k: dict(r) for k, r in
+              fops.flash_attention.backward_by_route.items()}
+    q, k, v, lens = _qkv(2, 1, 2, 1, 64, 64, 64)
+    o = fref.mha_ref(q, k, v, lens, True).to(BF)
+    got = fops.attention_bwd(q, k, v, o, q, lens, True)
+    assert [x.dtype for x in got] == [BF] * 3
+    assert fops.flash_attention.backward_by_route == before
+    assert set(before) == set(fops.BWD_KERNELS)
+    assert all(set(r) == set(fops.BWD_ROUTES) for r in before.values())
+
+
+# --- the wgmma backward's arithmetic -----------------------------------------
+
+def _hilo(x, split):
+    """x as the bf16 parts the kernel feeds a product: hi, and lo."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def hilo_attention_bwd(q, k, v, o, do, lengths, causal, split_p=True,
+                       split_ds=True):
+    """The ``wgmma`` backward's arithmetic in plain torch, (dq, dk, dv) in
+    bf16.  The dq kernel: the row statistics over 64-key tiles in log2
+    units (online max and sum), Delta = rowsum(do * o), then per 64-key
+    tile P = 2^(S scale log2 e - lse2), dS = P (dP - Delta), and
+    ``dQ += dS K`` from dS rounded to bf16 as hi + lo (``split_ds``) or
+    once.  The dkdv kernel: per 64-key tile, the G heads of its KV head in
+    order, each in 32-query steps, ``dV += P^T dO`` and
+    ``dK += dS^T Q`` from P (``split_p``) and dS so rounded.  Scores of
+    the bf16 inputs in float32; masked pairs zero."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    scale = 1.0 / math.sqrt(d)
+    scale2 = scale * math.log2(math.e)
+    qpos = torch.arange(sq)[:, None]
+    tiles = [torch.arange(k0, min(k0 + 64, sk)) for k0 in range(0, sk, 64)]
+
+    def live(keys):
+        lv = keys[None, :] < lengths[:, None, None, None]
+        if causal:
+            lv = lv & (keys[None, :] <= qpos + (sk - sq))
+        return lv
+
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    for keys in tiles:
+        lv = live(keys)
+        s = torch.where(lv, qf @ kf[:, :, keys].transpose(-1, -2) * scale2,
+                        -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(lv, torch.exp2(s - m_new), 0.0)
+        l = l * torch.exp2(m - m_new) + p.sum(-1, keepdim=True)
+        m = m_new
+    lse2 = torch.where(l > 0, m + torch.log2(l), 0.0)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+
+    dq = torch.zeros((b, h, sq, d))
+    dk = torch.zeros((b, kv, sk, d))
+    dv = torch.zeros((b, kv, sk, d))
+    for keys in tiles:
+        lv = live(keys)
+        s = qf @ kf[:, :, keys].transpose(-1, -2)
+        p = torch.where(lv, torch.exp2(s * scale2 - lse2), 0.0)
+        dp = dof @ vf[:, :, keys].transpose(-1, -2)
+        ds = torch.where(lv, p * (dp - delta), 0.0)
+        for part in _hilo(ds, split_ds):
+            dq += part @ kf[:, :, keys]
+        # dkdv: (b, KV, G, ...) so that the G heads go in order
+        p5, ds5 = (x.reshape(b, kv, g, sq, -1) for x in (p, ds))
+        q5, do5 = qf.reshape(b, kv, g, sq, d), dof.reshape(b, kv, g, sq, d)
+        for hh in range(g):
+            for q0 in range(0, sq, 32):
+                rows = slice(q0, q0 + 32)
+                for part in _hilo(p5[:, :, hh, rows], split_p):
+                    dv[:, :, keys] += part.transpose(-1, -2) \
+                        @ do5[:, :, hh, rows]
+                for part in _hilo(ds5[:, :, hh, rows], split_ds):
+                    dk[:, :, keys] += part.transpose(-1, -2) \
+                        @ q5[:, :, hh, rows]
+    return ((dq * scale).bfloat16(), (dk * scale).bfloat16(),
+            dv.bfloat16())
+
+
+def _bwd_inputs(seed, b, h, kv, sq, sk, d, causal, lengths=None):
+    """q, k, v, do from seeded numpy, lengths (random, the first full, or
+    given) and the forward's output o, rounded to bf16 as the kernel
+    saves it."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s)
+                                     .astype(np.float32)).bfloat16()
+    q, k, v, do = mk(b, h, sq, d), mk(b, kv, sk, d), mk(b, kv, sk, d), \
+        mk(b, h, sq, d)
+    if lengths is None:
+        lens = torch.from_numpy(rng.integers(1, sk + 1, b).astype(np.int32))
+        lens[0] = sk
+    else:
+        lens = torch.tensor(lengths, dtype=torch.int32)
+    o = fref.mha_ref(q, k, v, lens, causal).to(BF)
+    return q, k, v, o, do, lens
+
+
+def _off_bwd(got, exp):
+    """Elements of (dq, dk, dv) beyond ``BWD_TOLERANCE[bfloat16]``."""
+    atol, rtol = fops.BWD_TOLERANCE[BF]
+    return [int(((g.float() - e.float()).abs()
+                 > atol + rtol * e.float().abs()).sum())
+            for g, e in zip(got, exp)]
+
+
+#: (B, H, KV, Sq, Sk, D, causal, lengths): GQA G = 1, 3, 4; ragged S; a
+#: length of 0; causal with Sq > Sk (the first rows see no key); Sk > Sq
+BWD_MODEL_CASES = [(2, 2, 2, 128, 128, 64, True, None),
+                   (2, 6, 2, 96, 200, 64, True, None),
+                   (2, 4, 1, 100, 300, 128, True, None),
+                   (2, 6, 2, 75, 75, 32, False, None),
+                   (3, 6, 2, 70, 70, 64, True, (70, 0, 33)),
+                   (2, 4, 1, 150, 90, 64, True, (90, 57)),
+                   (2, 4, 4, 16, 48, 16, False, (48, 0))]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,lengths", BWD_MODEL_CASES)
+def test_hilo_bwd_within_bf16_tolerance(b, h, kv, sq, sk, d, causal,
+                                        lengths):
+    q, k, v, o, do, lens = _bwd_inputs(sq + sk + d, b, h, kv, sq, sk, d,
+                                       causal, lengths)
+    exp = fref.mha_ref_bwd(q, k, v, o, do, lens, causal)
+    got = hilo_attention_bwd(q, k, v, o, do, lens, causal)
+    assert _off_bwd(got, exp) == [0, 0, 0]
+    # rows with no live key: zero dq, and a length-0 entry's keys zero dk
+    for i, n in enumerate(lens.tolist()):
+        dead = sq if n == 0 else (max(0, sq - sk) if causal else 0)
+        assert not torch.count_nonzero(got[0][i, :, :dead])
+        assert not torch.count_nonzero(got[1][i, :, n:])
+        assert not torch.count_nonzero(got[2][i, :, n:])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hilo_bwd_one_bf16_p_or_ds_misses_tolerance(seed):
+    """Why the kernels take P and dS as hi + lo pairs: one bf16 P puts dv
+    beyond ``BWD_TOLERANCE[bfloat16]``, one bf16 dS dq and dk."""
+    case = (2, 6, 2, 96, 200, 64, True)
+    q, k, v, o, do, lens = _bwd_inputs(seed, *case)
+    exp = fref.mha_ref_bwd(q, k, v, o, do, lens, True)
+    one_p = _off_bwd(hilo_attention_bwd(q, k, v, o, do, lens, True,
+                                        split_p=False), exp)
+    one_ds = _off_bwd(hilo_attention_bwd(q, k, v, o, do, lens, True,
+                                         split_ds=False), exp)
+    assert one_p[:2] == [0, 0] and one_p[2] > 0
+    assert one_ds[0] > 0 and one_ds[1] > 0 and one_ds[2] == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_hilo_bwd_poisoned_keys_change_no_bit_of_dq(causal):
+    """Keys past each length hold 1e4 and values -1e4: P and dS are
+    exactly zero there, so dq keeps every bit and those keys' dk, dv are
+    zero."""
+    q, k, v, o, do, lens = _bwd_inputs(7, 3, 6, 2, 80, 160, 64, causal,
+                                       (160, 70, 1))
+    got = hilo_attention_bwd(q, k, v, o, do, lens, causal)
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, :, n:] = 1e4
+        v2[i, :, n:] = -1e4
+    p = hilo_attention_bwd(q, k2, v2, o, do, lens, causal)
+    assert torch.equal(p[0], got[0])
+    for i, n in enumerate(lens.tolist()):
+        assert not torch.count_nonzero(p[1][i, :, n:])
+        assert not torch.count_nonzero(p[2][i, :, n:])
