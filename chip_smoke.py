@@ -117,7 +117,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    attention backward's two routes and ``torch.autograd.grad`` of
    ``scaled_dot_product_attention`` the same way (by CUDA graph where
    the library's autograd captures, else all three eagerly), the
-   gradient products against ``torch.bmm``, with the bound.
+   gradient products against ``torch.bmm``, with the bound;
+7. the other families' serve, after the trainer is freed: the smoke
+   serves of zamba2, xlstm, seamless-m4t and internvl2 against the JAX
+   reference's committed runs
+   (``src/repro_torch/models/reference_serve_families.json``), float32
+   and bfloat16; then each family's full published config in bf16
+   (weights drawn on the card from seed 0; 8 requests x prompt 512, 32
+   decode steps; seamless with 512 frames, internvl2 with 1,024 patches
+   and ``max_len`` 2,048), its counters zeroed just before and read
+   after the prefill and after the decode: every prefill attention on
+   ``wgmma``, every decode attention on ``split``, none on ``simt``, no
+   expert GEMM; prefill seconds, decode ms a step, useful tokens a
+   second, peak memory, finite logits; each model freed before the
+   next; then ``flash_attention`` held against its plain version and
+   timed at each family's prefill and decode shapes.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -2263,16 +2277,19 @@ def serve_full(dev, gpu: str) -> dict:
             "last_lengths": r["last_lengths"]}
 
 
-def profile_decode(cfg, model, prompt, ms_step: float, steps: int = 2):
+def profile_decode(cfg, model, prompt, ms_step: float, steps: int = 2, *,
+                   inputs=None, max_len=None):
     """Device time and the top kernels by device time over a few decode
-    steps of the full-width serve, by ``torch.profiler``; the busy share
-    is given against the profiled wall time and against the unprofiled
-    step time ``ms_step``."""
+    steps of a full-width serve (after a prefill of ``prompt`` and
+    ``inputs``), by ``torch.profiler``; the busy share is given against
+    the profiled wall time and against the unprofiled step time
+    ``ms_step``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
-    _, cache, lengths = api.prefill(cfg, model, {"tokens": prompt},
-                                    SERVE["max_len"])
+    _, cache, lengths = api.prefill(cfg, model,
+                                    {"tokens": prompt, **(inputs or {})},
+                                    max_len or SERVE["max_len"])
     tok = torch.zeros((prompt.shape[0],), dtype=torch.int32,
                       device=prompt.device)
     api.decode(cfg, model, cache, tok, lengths)
@@ -2295,7 +2312,8 @@ def profile_decode(cfg, model, prompt, ms_step: float, steps: int = 2):
     busy = sum(dev_us(e) for e in kern) / 1e6
     launches = sum(e.count for e in kern)
     per_step = 1e3 * busy / steps
-    log(f"[profile] {steps} decode steps: {launches} kernels, device busy "
+    log(f"[profile] {cfg.name}, {steps} decode steps: {launches} kernels, "
+        f"device busy "
         f"{per_step:.3f} ms a step; profiled wall {1e3 * wall / steps:.3f} "
         f"ms a step ({100 * busy / wall:.1f} % busy); against the "
         f"unprofiled {ms_step:.3f} ms a step, {100 * per_step / ms_step:.1f}"
@@ -2381,74 +2399,84 @@ def lm_library(name, args):
                                                   enable_gqa=True)
 
 
-def lm_kernels_at_serve(dev, full: dict) -> list:
-    """Hold each LM kernel against its plain version at the serve's
-    shapes, then time there, in turns: the routed kernel, the previous
-    design (the ``simt`` kernel on the same inputs), the plain version
-    and a library call."""
-    import torch
+def lm_fns() -> dict:
+    """Each LM kernel's (wrapper, plain version, tolerance, previous
+    design, route rule)."""
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
-    fns = {"wavefront_matmul": (mops.wavefront_matmul,
-                                mref.wavefront_matmul_ref, mops.TOLERANCE,
-                                lambda *a: mops.run_route("simt", *a),
-                                lambda a, b, _: mops.route(a, b)),
-           "flash_attention": (fops.flash_attention,
-                               lambda *a: fref.mha_ref(*a).to(a[0].dtype),
-                               fops.TOLERANCE,
-                               lambda *a: fops.run_route("simt", *a),
-                               lambda q, k, v, *_: fops.route(q, k, v))}
+    return {"wavefront_matmul": (mops.wavefront_matmul,
+                                 mref.wavefront_matmul_ref, mops.TOLERANCE,
+                                 lambda *a: mops.run_route("simt", *a),
+                                 lambda a, b, _: mops.route(a, b)),
+            "flash_attention": (fops.flash_attention,
+                                lambda *a: fref.mha_ref(*a).to(a[0].dtype),
+                                fops.TOLERANCE,
+                                lambda *a: fops.run_route("simt", *a),
+                                lambda q, k, v, *_: fops.route(q, k, v))}
+
+
+def lm_row(name: str, phase: str, call: str, args) -> dict:
+    """One LM kernel call held against its plain version, then timed in
+    turns: the routed kernel, the previous design (the ``simt`` kernel on
+    the same inputs), the plain version and a library call, with the
+    bound.  The launches made here are taken back off the counters."""
+    import torch
+    kern, plain, tol, prev, route = lm_fns()[name]
+    counter = lm_counters()[name]
+    before = (counter.launches, dict(counter.by_route))
+    got = kern(*args)
+    old = prev(*args)
+    exp = plain(*args)
+    torch.cuda.synchronize()
+    try:
+        err = within(got, exp, tol[got.dtype])
+        prev_err = within(old, exp, tol[got.dtype])
+    except AssertionError as e:
+        raise AssertionError(f"{name} {phase} {call}: {e}") from None
+    nbytes, flops = lm_work(name, args)
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+    heavy = phase == "prefill"
+    # in turns: routed kernel, previous design, library, plain, then the
+    # routed kernel and the previous design again (the median of both
+    # rounds); device time by CUDA graph, the plain version eager
+    lib = lm_library(name, args)
+    ms, prev_ms = [graph_ms(lambda: kern(*args))], \
+        [graph_ms(lambda: prev(*args), reps=10 if heavy else 40)]
+    library_ms = graph_ms(lib)
+    plain_ms = time_ms(lambda: plain(*args), reps=5 if heavy else 20,
+                       rounds=3)
+    prev_ms.append(graph_ms(lambda: prev(*args), reps=10 if heavy else 40))
+    ms.append(graph_ms(lambda: kern(*args)))
+    row = {"phase": phase, "call": call, "route": route(*args),
+           "shape": [list(a.shape) for a in args
+                     if isinstance(a, torch.Tensor)],
+           "max_abs_err": err, "prev_max_abs_err": prev_err,
+           "ms": statistics.median(ms),
+           "prev_ms": statistics.median(prev_ms),
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "eager_ms": time_ms(lambda: kern(*args),
+                               reps=40 if heavy else 200, rounds=5),
+           "bound_ms": max(t_b, t_f) * 1e3,
+           "bound_by": "bytes" if t_b >= t_f else "operations"}
+    # timing launches are not the run's
+    counter.launches, counter.by_route = before
+    log(f"[lm-timing] {name} {phase} {call} {row['shape']}: {row['route']}"
+        f" {row['ms']:.5f} ms (issued eagerly {row['eager_ms']:.5f} ms), "
+        f"previous design (simt) {row['prev_ms']:.5f}"
+        f" ms, plain {row['plain_ms']:.5f} ms, library "
+        f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}); within {tol[got.dtype]} of the plain "
+        f"version (max abs err {err:.3g}; simt {prev_err:.3g})")
+    return row
+
+
+def lm_kernels_at_serve(dev, full: dict) -> list:
+    """Hold each LM kernel against its plain version at the serve's
+    shapes, then time there (:func:`lm_row`)."""
     cases = lm_cases(dev, full["cfg"], full["last_lengths"])
     rows = {}
     for (name, phase, call), args in cases.items():
-        kern, plain, tol, prev, route = fns[name]
-        counter = lm_counters()[name]
-        before = (counter.launches, dict(counter.by_route))
-        got = kern(*args)
-        old = prev(*args)
-        exp = plain(*args)
-        torch.cuda.synchronize()
-        try:
-            err = within(got, exp, tol[got.dtype])
-            prev_err = within(old, exp, tol[got.dtype])
-        except AssertionError as e:
-            raise AssertionError(f"{name} {phase} {call}: {e}") from None
-        nbytes, flops = lm_work(name, args)
-        t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
-        heavy = phase == "prefill"
-        # in turns: routed kernel, previous design, library, plain, then
-        # the routed kernel and the previous design again (the median of
-        # both rounds); device time by CUDA graph, the plain version eager
-        lib = lm_library(name, args)
-        ms, prev_ms = [graph_ms(lambda: kern(*args))], \
-            [graph_ms(lambda: prev(*args), reps=10 if heavy else 40)]
-        library_ms = graph_ms(lib)
-        plain_ms = time_ms(lambda: plain(*args), reps=5 if heavy else 20,
-                           rounds=3)
-        prev_ms.append(graph_ms(lambda: prev(*args),
-                                reps=10 if heavy else 40))
-        ms.append(graph_ms(lambda: kern(*args)))
-        row = {"phase": phase, "call": call, "route": route(*args),
-               "shape": [list(a.shape) for a in args
-                         if isinstance(a, torch.Tensor)],
-               "max_abs_err": err, "prev_max_abs_err": prev_err,
-               "ms": statistics.median(ms),
-               "prev_ms": statistics.median(prev_ms),
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "eager_ms": time_ms(lambda: kern(*args),
-                                   reps=40 if heavy else 200, rounds=5),
-               "bound_ms": max(t_b, t_f) * 1e3,
-               "bound_by": "bytes" if t_b >= t_f else "operations"}
-        # timing launches are not the run's
-        counter.launches, counter.by_route = before
-        rows.setdefault(name, []).append(row)
-        log(f"[lm-timing] {name} {phase} {call} {row['shape']}: {row['route']}"
-            f" {row['ms']:.5f} ms (issued eagerly {row['eager_ms']:.5f} ms), "
-            f"previous design (simt) {row['prev_ms']:.5f}"
-            f" ms, plain {row['plain_ms']:.5f} ms, library "
-            f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']}); within {tol[got.dtype]} of the plain "
-            f"version (max abs err {err:.3g}; simt {prev_err:.3g})")
+        rows.setdefault(name, []).append(lm_row(name, phase, call, args))
     src = {"wavefront_matmul": "src/repro/kernels/wavefront_matmul/"
                                "kernel.py:52",
            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:87"}
@@ -2470,6 +2498,162 @@ def lm_kernels_at_serve(dev, full: dict) -> list:
                     "kernel_route": first["route"],
                     "cases": rows[name]})
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the other families' serve (zamba2, xlstm, seamless-m4t, internvl2)
+# ---------------------------------------------------------------------------
+
+#: each family's full published config: 8 requests x prompt 512 (seamless
+#: also 512 frames of width 1,024; internvl2 1,024 patches of width
+#: 1,024 before the prompt), 32 greedy decode steps
+FAMILY_SERVES = {"zamba2-1p2b": 1024, "xlstm-350m": 1024,
+                 "seamless-m4t-large-v2": 1024, "internvl2-2b": 2048}
+
+
+def family_attention(cfg) -> tuple:
+    """``flash_attention`` launches the family's serve must make: (on
+    ``wgmma`` in prefill, on ``split`` a decode step)."""
+    if cfg.family == "mamba_hybrid":
+        from repro_torch.models import zamba2
+        sites = len(zamba2._groups(cfg))
+        return sites, sites
+    if cfg.family == "encdec":             # the encoder; self + cross
+        return cfg.enc_layers, 2 * cfg.dec_layers
+    if cfg.family == "xlstm":
+        return 0, 0
+    return cfg.n_layers, cfg.n_layers
+
+
+def family_cases(dev, cfg, max_len: int, last_lengths) -> dict:
+    """``flash_attention``'s inputs at the family's serve shapes (bf16),
+    by call: the prefill's and each decode call's, the decode lengths
+    those that the run's last step read."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, s = SERVE["requests"], SERVE["prompt_len"]
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    rn = lambda *shape: torch.randn(shape, generator=g,
+                                    device=dev).to(torch.bfloat16)
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device=dev)
+    dec = torch.from_numpy(last_lengths + 1).to(dev, torch.int32)
+    out = {}
+    if cfg.family == "encdec":
+        out[("prefill", "encoder (non-causal)")] = (
+            rn(b, h, s, hd), rn(b, kv, s, hd), rn(b, kv, s, hd), full(s),
+            False)
+        out[("decode", "cross")] = (rn(b, h, 1, hd), rn(b, kv, s, hd),
+                                    rn(b, kv, s, hd), full(s), False)
+    else:
+        p = s + (cfg.num_patches if cfg.family == "vlm" else 0)
+        out[("prefill", "self")] = (rn(b, h, p, hd), rn(b, kv, p, hd),
+                                    rn(b, kv, p, hd), full(p), True)
+    out[("decode", "self")] = (rn(b, h, 1, hd), rn(b, kv, max_len, hd),
+                               rn(b, kv, max_len, hd), dec, False)
+    return out
+
+
+def serve_families(dev, gpu: str) -> dict:
+    """Phase 7: the four families' smoke serves against the JAX
+    reference's file, then each full published config through
+    ``serve.generate`` (bf16, weights drawn on the card from seed 0), its
+    counters zeroed just before and read after the prefill and after the
+    decode; every prefill attention on ``wgmma``, every decode attention
+    on ``split``; each model freed before the next.  Then
+    ``flash_attention`` held and timed at each family's shapes."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    for arch, runs in serve.hold_against_reference(
+            dev, serve.REFERENCE_FAMILIES).items():
+        for name, r in runs.items():
+            log(f"[families-ref] {arch} {name}: logits within "
+                f"{serve.TOLERANCE[name]} of the reference (max abs err "
+                f"{r['max_abs_err']:.3g}); {r['tokens_checked']} of "
+                f"{r['tokens']} greedy tokens checked, all equal")
+    log(f"[families-ref] {time.perf_counter() - t0:.1f}s")
+    out, cases = {}, []
+    b, s, steps = SERVE["requests"], SERVE["prompt_len"], SERVE["max_new"]
+    for arch, max_len in FAMILY_SERVES.items():
+        cfg = configs.get(arch)
+        t0 = time.perf_counter()
+        model = serve.build_model(cfg, SERVE["seed"], dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        prompt, inputs = serve.make_inputs(cfg, SERVE["seed"], b, s, dev)
+        # warm-up (xlstm's prefill is a decode step a token: 16 of them)
+        warm = prompt[:, :16] if cfg.family == "xlstm" else prompt
+        serve.generate(cfg, model, warm, 2, max_len, inputs=inputs)
+        torch.cuda.synchronize()
+        log(f"[families] {cfg.name}: {n_params / 1e9:.3f} B parameters at "
+            f"{cfg.dtype}, built and warmed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        zero_lm_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        after_prefill = []
+        real = api.prefill
+
+        def prefill(*a, **k):
+            res = real(*a, **k)
+            after_prefill.append(route_counts())
+            return res
+        api.prefill = prefill
+        try:
+            r = serve.generate(cfg, model, prompt, steps, max_len,
+                               inputs=inputs)
+        finally:
+            api.prefill = real
+        total = route_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        pre = after_prefill[0]["flash_attention"]
+        dec = {k: v - pre[k] for k, v in total["flash_attention"].items()}
+        if total["wavefront_matmul"] != dict.fromkeys(
+                total["wavefront_matmul"], 0):
+            raise AssertionError(f"{arch}: wavefront_matmul launched "
+                                 f"{total['wavefront_matmul']}")
+        n_pre, n_dec = family_attention(cfg)
+        want_pre = {"wgmma": n_pre, "split": 0, "simt": 0}
+        want_dec = {"wgmma": 0, "split": n_dec * steps, "simt": 0}
+        if pre != want_pre or dec != want_dec:
+            raise AssertionError(f"{arch}: flash_attention launches by route"
+                                 f" prefill {pre}, decode {dec}; expected "
+                                 f"{want_pre}, {want_dec}")
+        if r["tokens"].shape != (b, steps + 1) or r["vocab"] != cfg.vocab:
+            raise AssertionError(f"{arch}: serve output has shape "
+                                 f"{r['tokens'].shape}")
+        if not r["finite"]:
+            raise AssertionError(f"{arch}: serve logits are not all finite")
+        ms_step = 1e3 * r["decode_s"] / steps
+        tps = r["useful"] / r["decode_s"]
+        out[cfg.name] = {"prefill_s": r["prefill_s"], "ms_step": ms_step,
+                         "tokens_s": tps, "peak_bytes": peak,
+                         "prefill_routes": pre, "decode_routes": dec,
+                         "launches": sum(total["flash_attention"].values()),
+                         "params": n_params}
+        log(f"[families] {cfg.name} prefill {b} x {s}"
+            + (f" (+ {s} frames)" if cfg.family == "encdec" else "")
+            + (f" (+ {cfg.num_patches} patches)" if cfg.family == "vlm"
+               else "")
+            + f": {r['prefill_s']:.4f}s; decode {steps} steps: "
+            f"{ms_step:.3f} ms/step, {r['useful']} useful tokens, "
+            f"{tps:.1f} useful tokens/s; peak memory {peak / 2**30:.2f} GiB;"
+            f" logits finite; flash_attention prefill {pre}, decode {dec} "
+            f"({gpu})")
+        # xlstm's prefill is the decode step a token: its state after 16
+        # tokens costs a decode step what it costs after 512
+        profile_decode(cfg, model, warm, ms_step, inputs=inputs,
+                       max_len=max_len)
+        if n_pre:
+            cases += [(cfg.name, phase, call, args) for (phase, call), args
+                      in family_cases(dev, cfg, max_len,
+                                      r["last_lengths"]).items()]
+        del model, r, prompt, inputs, warm
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = [dict(lm_row("flash_attention", phase, f"{name} {call}", args),
+                 model=name) for name, phase, call, args in cases]
+    return {"serves": out, "rows": rows}
 
 
 def ptxas_report(logs: dict) -> list:
@@ -2666,6 +2850,22 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += train_kernels(dev, trained)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fam = serve_families(dev, gpu)
+    attn = next(k for k in kernels if k["name"] == "flash_attention")
+    attn["paths"] = {"serve granite-moe-3b-a800m": attn["launches"],
+                     **{f"serve {n}": r["launches"]
+                        for n, r in fam["serves"].items()}}
+    attn["launches"] = sum(attn["paths"].values())
+    for r in fam["serves"].values():
+        for part in ("prefill_routes", "decode_routes"):
+            for route, n in r[part].items():
+                attn["routes"][route] += n
+    attn["cases"] += fam["rows"]
+    attn["max_abs_err"] = max(c["max_abs_err"] for c in attn["cases"])
 
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,8 +17,10 @@ ARCHS = [
     "seamless_m4t_large_v2", "xlstm_350m", "internvl2_2b",
 ]
 
-#: CLI ids (--arch <id>) -> module names
+#: CLI ids (--arch <id>) -> module names; a config's own name is an id
+#: too (only zamba2's differs from its module's)
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+ALIASES["zamba2-1.2b"] = "zamba2_1p2b"
 
 
 @dataclasses.dataclass(frozen=True)

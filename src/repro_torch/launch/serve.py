@@ -29,14 +29,18 @@ import torch
 
 from .. import configs
 from ..models import api, convert
+from ..models.vlm import D_VIT
 from ..training.steps import make_serve_decode_step
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+_MODELS = pathlib.Path(__file__).resolve().parents[1] / "models"
 #: the JAX reference's smoke serve (tokens and every step's logits),
 #: written by ``tests/test_torch_serve.py --write``
-REFERENCE = pathlib.Path(__file__).resolve().parents[1] / "models" \
-    / "reference_serve.json"
+REFERENCE = _MODELS / "reference_serve.json"
+#: the same for zamba2, xlstm, seamless-m4t and internvl2, written by
+#: ``tests/test_torch_serve_families.py --write``
+REFERENCE_FAMILIES = _MODELS / "reference_serve_families.json"
 #: activation type -> tolerance of a whole run's logits (or cache) against
 #: the reference's: a ``share`` of the entries within ``atol + rtol * |ref|``
 #: and every entry within ``bound``.  float32: all within its rounding.
@@ -98,10 +102,34 @@ def build_model(cfg, seed: int, device, init: str = "torch"):
     return api.init_params(gen, cfg, device, keep_master=False)
 
 
-def make_prompt(cfg, seed: int, requests: int, prompt_len: int):
-    """The serve's prompt tokens, from a numpy seed as the reference's."""
+def make_batch(cfg, seed: int, requests: int, prompt_len: int) -> dict:
+    """The serve's inputs as numpy arrays, drawn from one numpy generator
+    in the reference's order: the prompt tokens, then the frame
+    embeddings of an ``encdec`` model (``prompt_len`` frames of width
+    ``d_model``) or the patch embeddings of a ``vlm`` model
+    (``num_patches`` of width ``D_VIT``), float32."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, (requests, prompt_len))
+    out = {"tokens": rng.integers(0, cfg.vocab, (requests, prompt_len))}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (requests, prompt_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (requests, cfg.num_patches, D_VIT)).astype(np.float32)
+    return out
+
+
+def make_prompt(cfg, seed: int, requests: int, prompt_len: int):
+    """The serve's prompt tokens (those of :func:`make_batch`)."""
+    return make_batch(cfg, seed, requests, prompt_len)["tokens"]
+
+
+def make_inputs(cfg, seed: int, requests: int, prompt_len: int, device):
+    """(prompt tokens, the other inputs) of :func:`make_batch` as tensors
+    on ``device``."""
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in make_batch(cfg, seed, requests, prompt_len).items()}
+    return batch.pop("tokens"), batch
 
 
 def _sync(device):
@@ -110,8 +138,10 @@ def _sync(device):
 
 
 def generate(cfg, model, prompt, max_new: int, max_len: int, *,
-             force=None, keep_logits: bool = False) -> dict:
-    """Prefill ``prompt`` (B, S) and decode ``max_new`` greedy steps.
+             inputs=None, force=None, keep_logits: bool = False) -> dict:
+    """Prefill ``prompt`` (B, S), with ``inputs`` (``frames`` or
+    ``patches``, as :func:`make_inputs` gives them) where the family
+    takes them, and decode ``max_new`` greedy steps.
 
     ``force`` (B, max_new + 1): feed these tokens instead of the argmax
     (teacher forcing, to hold each step's logits against a reference run
@@ -124,8 +154,8 @@ def generate(cfg, model, prompt, max_new: int, max_len: int, *,
     b = prompt.shape[0]
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache, lengths = api.prefill(cfg, model, {"tokens": prompt},
-                                         max_len)
+    logits, cache, lengths = api.prefill(
+        cfg, model, {"tokens": prompt, **(inputs or {})}, max_len)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -190,10 +220,10 @@ def main(argv=None):
         cfg = cfg.replace(dtype=DTYPES[args.dtype])
     b = args.requests
     model = build_model(cfg, args.seed, device, args.init)
-    prompt = torch.from_numpy(make_prompt(cfg, args.seed, b,
-                                          args.prompt_len)).to(device)
+    prompt, inputs = make_inputs(cfg, args.seed, b, args.prompt_len, device)
 
-    r = generate(cfg, model, prompt, args.max_new, args.max_len)
+    r = generate(cfg, model, prompt, args.max_new, args.max_len,
+                 inputs=inputs)
     print(f"prefill: {b} x {args.prompt_len} in {r['prefill_s']:.3f}s")
     dt = r["decode_s"]
     print(f"decode: {args.max_new} steps x {b} reqs in {dt:.3f}s "
@@ -215,35 +245,45 @@ def decode_array(d: dict) -> np.ndarray:
 
 
 def hold_against_reference(device, path=REFERENCE) -> dict:
-    """Run the committed reference serve's configuration on ``device`` with
-    its numpy weights, fed the reference's tokens, and hold every step's
-    logits to :data:`TOLERANCE` and each greedy token to the reference's
-    wherever its top-2 margin exceeds the type's ``atol``.  Raises
-    ``AssertionError`` on a mismatch; returns per-type errors."""
+    """Run each committed reference serve's configuration on ``device``
+    with its numpy weights and inputs, fed the reference's tokens, and
+    hold every step's logits to :data:`TOLERANCE` and each greedy token
+    to the reference's wherever its top-2 margin exceeds the type's
+    ``atol``.  ``path``: a file of one architecture (``arch``) or of
+    several (``archs``).  Raises ``AssertionError`` on a mismatch; returns
+    per-type errors (by architecture for a file of several)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 is on: the float32 run would not compute "
                            "in float32 (call float32_matmuls first)")
     ref = json.loads(pathlib.Path(path).read_text())
+    if "archs" not in ref:
+        return _hold(device, ref["arch"], ref, ref["runs"], path)
+    return {arch: _hold(device, arch, ref, runs, path)
+            for arch, runs in ref["archs"].items()}
+
+
+def _hold(device, arch: str, ref: dict, runs: dict, path) -> dict:
     out = {}
-    for name, run in ref["runs"].items():
-        cfg = configs.get_smoke(ref["arch"]).replace(dtype=DTYPES[name])
+    for name, run in runs.items():
+        cfg = configs.get_smoke(arch).replace(dtype=DTYPES[name])
         model = build_model(cfg, ref["seed"], device, "numpy")
-        prompt = torch.from_numpy(make_prompt(
-            cfg, ref["seed"], ref["requests"], ref["prompt_len"])).to(device)
+        prompt, inputs = make_inputs(cfg, ref["seed"], ref["requests"],
+                                     ref["prompt_len"], device)
         tokens = np.asarray(run["tokens"])
         r = generate(cfg, model, prompt, ref["max_new"], ref["max_len"],
-                     force=tokens, keep_logits=True)
+                     inputs=inputs, force=tokens, keep_logits=True)
         exp, got = decode_array(run["logits"]), r["logits"]
         off = tolerance_error(got, exp, name)
         if off:
-            raise AssertionError(f"{name} serve: logits off the reference: "
-                                 f"{off}")
+            raise AssertionError(f"{arch} {name} serve: logits off the "
+                                 f"reference: {off}")
         if not np.array_equal(exp.argmax(-1), tokens):
-            raise AssertionError(f"{path}: tokens are not the logits' argmax")
+            raise AssertionError(f"{path}: {arch}'s tokens are not the "
+                                 "logits' argmax")
         bad, checked = greedy_mismatches(got, exp, name)
         if bad:
-            raise AssertionError(f"{name} serve: {bad} of {checked} greedy "
-                                 "tokens differ from the reference's")
+            raise AssertionError(f"{arch} {name} serve: {bad} of {checked} "
+                                 "greedy tokens differ from the reference's")
         out[name] = {"max_abs_err": float(np.abs(got - exp).max()),
                      "tokens_checked": checked, "tokens": int(tokens.size)}
     return out

@@ -4,9 +4,9 @@ The port of ``repro/models/attention.py``.  Where the reference computes
 the scores as ``jnp`` einsums (and names the Pallas ``flash_attention``
 kernel as their TPU implementation), both paths here run through the
 hand-written :func:`repro_torch.kernels.flash_attention.ops.
-flash_attention`: prefill as causal attention over its own ``S``
-positions, decode as one query row over the cache with ``lengths + 1``
-live keys.  The projections stay plain products.
+flash_attention`: prefill as attention over its own ``S`` positions
+(causal, or not for an encoder) or over another sequence (cross), decode
+as one query row over the cache with ``lengths + 1`` live keys.  The projections stay plain products.
 
 The KV cache is written in place (the reference returns a new array):
 a decode step writes one row per request and layer, so copying the
@@ -45,19 +45,29 @@ def _out(o, wo):
     return o.flatten(-2) @ wo.reshape(h * hd, d)
 
 
-def attend(cfg: ModelConfig, p, x, positions, *, return_kv=False):
-    """Causal self-attention over the whole sequence.  x: (B, S, d);
-    positions: (B, S).  ``return_kv``: also return (k, v) as
-    (B, KV, S, hd) for the prefill cache."""
+def attend(cfg: ModelConfig, p, x, positions, *, causal=True, kv_x=None,
+           kv_lengths=None, return_kv=False):
+    """Full-sequence attention.  x: (B, S, d); positions: (B, S), the
+    query positions 0..S-1 (rotary).  ``kv_x`` (B, T, d): cross-attention
+    over it (no rotary, never causal).  ``kv_lengths`` (B,) int32: each
+    row attends to keys ``< kv_lengths`` only, the reference's ragged
+    mask ``kv_valid = arange(T) < kv_lengths`` (the only mask its callers
+    build); a row with no live key gives 0, as the reference's.
+    ``return_kv``: also return (k, v) as (B, KV, T, hd) for a cache."""
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _project(x, p["wq"].to(x.dtype))
-    k = _project(x, p["wk"].to(x.dtype))
-    v = _project(x, p["wv"].to(x.dtype))
-    q = rotary(q, positions, cfg.rope_theta)
-    k = rotary(k, positions, cfg.rope_theta)
+    k = _project(src, p["wk"].to(x.dtype))
+    v = _project(src, p["wv"].to(x.dtype))
+    if kv_x is None:                 # rotary only for self-attention
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, positions, cfg.rope_theta)
     q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    o = flash_attention(q, k, v, lengths, causal=True)     # (B, H, S, hd)
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), src.shape[1], dtype=torch.int32,
+                                device=x.device)
+    o = flash_attention(q, k, v, kv_lengths.to(torch.int32),
+                        causal=causal and kv_x is None)   # (B, H, S, hd)
     out = _out(o.transpose(1, 2), p["wo"].to(x.dtype))
     if return_kv:
         return out, (k, v)

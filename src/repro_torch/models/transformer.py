@@ -1,9 +1,11 @@
 """Decoder-only transformer (dense GQA or MoE FFN): training loss, prefill
 and decode.
 
-The port of ``repro/models/transformer.py``.  :class:`Transformer` is an
-``nn.Module`` that holds the parameters at ``cfg.param_dtype`` in a
-``ModuleList`` of blocks; a Python loop over the blocks takes the place
+The port of ``repro/models/transformer.py``.  :class:`Model`, the base
+of every family's model, is an ``nn.Module`` that holds a parameter
+tree at ``cfg.param_dtype`` (a layer list as a ``ModuleList``) and its
+serving copy; :class:`Transformer` is this family's.  A Python loop
+over the blocks takes the place
 of ``lax.scan``, and ``remat`` (``jax.checkpoint`` of each block) is
 ``torch.utils.checkpoint`` of each block, non-reentrant, when a gradient
 is wanted.  The functions below take the same
@@ -46,13 +48,18 @@ def block_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
-def tree_map(fn, tree):
-    """``fn`` of every leaf of a tree of dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """``fn`` of every leaf of a tree of dicts, lists and named tuples
+    (and of the same leaf of each tree of ``rest``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list) or (isinstance(tree, tuple)
+                                  and hasattr(tree, "_fields")):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else type(tree)(*out)
+    return fn(tree, *rest)
 
 
 def cast(tree, dtype: torch.dtype):
@@ -88,9 +95,11 @@ def _ffn(cfg: ModelConfig, p, h):
                   m["w_out"].to(h.dtype))
 
 
-def block_apply(cfg: ModelConfig, p, x, positions, *, return_kv=False):
+def block_apply(cfg: ModelConfig, p, x, positions, *, causal=True,
+                kv_lengths=None, return_kv=False):
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    a = attention.attend(cfg, p["attn"], h, positions, return_kv=return_kv)
+    a = attention.attend(cfg, p["attn"], h, positions, causal=causal,
+                         kv_lengths=kv_lengths, return_kv=return_kv)
     if return_kv:
         a, kv = a
     x = x + a
@@ -124,9 +133,18 @@ def run_stack(cfg: ModelConfig, blocks, x, positions):
     return x
 
 
-def forward(cfg: ModelConfig, params, tokens, *, positions=None):
-    """tokens: (B, S).  Returns logits (B, S, V)."""
-    x = _embed(cfg, params, tokens)
+def _inputs(cfg: ModelConfig, params, tokens, embeds):
+    """The stack's input: ``embeds`` (B, S, d) at ``cfg.dtype`` where
+    given, else the embeddings of ``tokens``."""
+    if embeds is not None:
+        return embeds.to(cfg.dtype)
+    return _embed(cfg, params, tokens)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, embeds=None, positions=None):
+    """tokens: (B, S) (or ``embeds``: (B, S, d)).  Returns logits
+    (B, S, V)."""
+    x = _inputs(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -134,23 +152,26 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None):
     return unembed(cfg, params, rms_norm(x, params["ln_f"], cfg.norm_eps))
 
 
-def loss_fn(cfg: ModelConfig, params, tokens, *, mask=None):
+def loss_fn(cfg: ModelConfig, params, tokens, *, embeds=None, mask=None):
     """Next-token cross-entropy of ``tokens`` (B, S): logits of the first
-    S - 1 positions against the last S - 1 tokens (float32 log-softmax),
-    averaged, or over ``mask``'s last S - 1 positions."""
+    S - 1 positions (of ``embeds``' first S - 1 where given) against the
+    last S - 1 tokens (float32 log-softmax), averaged, or over ``mask``'s
+    last S - 1 positions."""
     tokens = tokens.long()
-    logits = forward(cfg, params, tokens[:, :-1])
+    logits = forward(cfg, params, tokens[:, :-1],
+                     embeds=None if embeds is None else embeds[:, :-1])
     m = mask[:, 1:] if mask is not None else None
     return softmax_cross_entropy(logits, tokens[:, 1:], m)
 
 
-def prefill(cfg: ModelConfig, params, tokens, *, max_len=None):
-    """Forward pass that also builds the KV cache.
+def prefill(cfg: ModelConfig, params, tokens, *, embeds=None, max_len=None):
+    """Forward pass that also builds the KV cache; ``embeds`` (B, S, d) in
+    place of ``tokens``' embeddings where given.
 
     Returns (last-token logits (B, V), KVCache (L, B, KV, max_len, hd),
     lengths (B,)).
     """
-    x = _embed(cfg, params, tokens)
+    x = _inputs(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     max_len = max_len or s
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -195,61 +216,59 @@ def decode_step(cfg: ModelConfig, params, cache: attention.KVCache, token,
 # --------------------------------------------------------------------------
 
 def _module(tree) -> nn.Module:
-    """Nested dicts of tensors as an ``nn.Module`` (parameters frozen)."""
+    """A tree of dicts and lists of tensors as an ``nn.Module``: a dict as
+    a module of its keys, a list (of dicts) as an ``nn.ModuleList``, a
+    tensor as a frozen parameter."""
+    if isinstance(tree, list):
+        return nn.ModuleList(_module(v) for v in tree)
     m = nn.Module()
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            m.add_module(k, _module(v))
-        else:
-            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    _register(m, tree)
     return m
 
 
-def _tree(m: nn.Module) -> dict:
+def _register(m: nn.Module, tree: dict) -> None:
+    for k, v in tree.items():
+        if isinstance(v, (dict, list)):
+            m.add_module(k, _module(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+
+def _tree(m: nn.Module):
+    """The inverse of :func:`_module`."""
+    if isinstance(m, nn.ModuleList):
+        return [_tree(c) for c in m]
     out = {k: p for k, p in m.named_parameters(recurse=False)}
     out.update({k: _tree(c) for k, c in m.named_children()})
     return out
 
 
-class Transformer(nn.Module):
-    """The model's parameters (``embed``, ``blocks``, ``ln_f`` and, unless
-    tied, ``unembed``) with :meth:`prefill` and :meth:`decode_step` over
-    a serving copy at ``cfg.dtype`` (the reference casts each weight at
-    each use).  The parameters are given at ``cfg.param_dtype`` (the
-    master copy, kept beside the serving copy) or, for a model that only
-    serves, already at ``cfg.dtype``: then they are the serving copy and
-    no second one is made.  The serving copy is made again whenever a
-    parameter has changed since it was cast (a training step updates the
-    master copy in place, which moves each tensor's version counter).
+class Model(nn.Module):
+    """A model's parameters, any tree of dicts and lists of tensors in the
+    reference's layout (with one dict per layer where the reference
+    stacks layers), as an ``nn.Module``, with a serving copy at
+    ``cfg.dtype`` (the reference casts each weight at each use).  The
+    parameters are given at ``cfg.param_dtype`` (the master copy, kept
+    beside the serving copy) or, for a model that only serves, already at
+    ``cfg.dtype``: then they are the serving copy and no second one is
+    made.  The serving copy is made again whenever a parameter has
+    changed since it was cast (a training step updates the master copy
+    in place, which moves each tensor's version counter).
 
     The parameters do not require gradients until ``requires_grad_()``
-    (the training step calls it); the loss is :func:`loss_fn` over
-    :meth:`params`."""
+    (the training step calls it); each family's loss is a function of
+    :meth:`params` (``models.api.loss``)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         self.cfg = cfg
-        self.blocks = nn.ModuleList(_module(b) for b in params["blocks"])
-        for k in ("embed", "ln_f", "unembed"):
-            if k in params:
-                self.register_parameter(
-                    k, nn.Parameter(params[k], requires_grad=False))
+        _register(self, params)
         self._serving = None
         self._serving_key = None
 
-    @classmethod
-    def init(cls, cfg: ModelConfig, gen: torch.Generator, device=None, *,
-             keep_master: bool = True):
-        """Draw the parameters; ``keep_master=False`` holds them at
-        ``cfg.dtype`` only (a model that serves and never trains)."""
-        return cls(cfg, init_params(gen, cfg, device,
-                                    dtype=None if keep_master else cfg.dtype))
-
     def params(self) -> dict:
         """The parameters as the reference's tree (one dict per layer)."""
-        out = {k: p for k, p in self.named_parameters(recurse=False)}
-        out["blocks"] = [_tree(b) for b in self.blocks]
-        return out
+        return _tree(self)
 
     def _versions(self) -> tuple:
         return tuple((p.data_ptr(), p._version) for p in self.parameters())
@@ -264,6 +283,19 @@ class Transformer(nn.Module):
             self._serving = cast(self.params(), self.cfg.dtype)
             self._serving_key = key
         return self._serving
+
+
+class Transformer(Model):
+    """A ``dense`` or ``moe`` model: ``embed``, ``blocks``, ``ln_f`` and,
+    unless tied, ``unembed``."""
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, gen: torch.Generator, device=None, *,
+             keep_master: bool = True):
+        """Draw the parameters; ``keep_master=False`` holds them at
+        ``cfg.dtype`` only (a model that serves and never trains)."""
+        return cls(cfg, init_params(gen, cfg, device,
+                                    dtype=None if keep_master else cfg.dtype))
 
     @torch.no_grad()
     def prefill(self, tokens, max_len=None):

@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from ..models import api
+from ..models.transformer import tree_map
 from ..models.common import ModelConfig
 from . import compression, optimizer as opt_mod
 
@@ -102,27 +103,33 @@ def make_serve_decode_step(cfg: ModelConfig, mask_cache: bool = False):
 
     ``mask_cache=False`` (default): only ``lengths`` are masked.  An
     inactive slot still writes its k/v at its frozen position, a row that
-    is never read before the slot is prefilled again.
-    ``mask_cache=True`` leaves an inactive slot's cache as it was: the
-    port writes the cache in place, so the one row per layer that the
-    step overwrites is saved first and put back for inactive slots.
+    is never read before the slot is prefilled again, and its recurrent
+    state (zamba2's SSM state, xlstm's) still advances, as in the
+    reference.
+    ``mask_cache=True`` keeps an inactive slot's cache as it was, by the
+    reference's merge of every cache leaf whose first, or else second,
+    axis is the batch: the port writes a KV cache in place, so the cache
+    is copied before the step.
     """
+
+    def merge(new, old, keep):
+        if new.shape == old.shape and new.dim() >= 1 \
+                and old.shape[0] == keep.shape[0]:
+            shape = (keep.shape[0],) + (1,) * (new.dim() - 1)
+        elif new.dim() >= 2 and new.shape[1] == keep.shape[0]:
+            shape = (1, keep.shape[0]) + (1,) * (new.dim() - 2)
+        else:
+            return new
+        return torch.where(keep.reshape(shape), new, old)
 
     def step(model, cache, token, lengths, active):
         keep = active.bool()
-        if mask_cache:
-            rows = torch.arange(lengths.shape[0], device=lengths.device)
-            pos = lengths.long().clamp(0, cache.k.shape[3] - 1)
-            old_k = cache.k[:, rows, :, pos].clone()     # (B, L, KV, hd)
-            old_v = cache.v[:, rows, :, pos].clone()
+        old = tree_map(torch.clone, cache) if mask_cache else None
         logits, new_cache, new_lengths = api.decode(cfg, model, cache, token,
                                                     lengths)
         if mask_cache:
-            drop = ~keep
-            for c, old in ((new_cache.k, old_k), (new_cache.v, old_v)):
-                cur = c[:, rows, :, pos]
-                c[:, rows, :, pos] = torch.where(drop[:, None, None, None],
-                                                 old, cur)
+            new_cache = tree_map(lambda n, o: merge(n, o, keep), new_cache,
+                                 old)
         new_lengths = torch.where(keep, new_lengths, lengths)
         return logits, new_cache, new_lengths
 

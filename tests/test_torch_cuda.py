@@ -474,6 +474,73 @@ def test_smoke_serve_on_cuda_holds_against_reference_file(dev):
     assert mops.wavefront_matmul.launches > m0
 
 
+# --- the other model families: zamba2, xlstm, seamless-m4t, internvl2 -------
+
+FAMILY_ARCHS = ["zamba2-1p2b", "xlstm-350m", "seamless-m4t-large-v2",
+                "internvl2-2b"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_serve_on_cuda_equals_cpu(dev, arch, dtype):
+    """Each family's smoke serve (numpy weights and inputs) on the card,
+    fed the CPU run's tokens, within the serve's tolerance of the port's
+    CPU run; attention (none for xlstm) through the kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import serve
+    serve.float32_matmuls()
+    cfg = configs.get_smoke(arch).replace(dtype=serve.DTYPES[dtype])
+    runs = {}
+    f0 = fops.flash_attention.launches
+    for d in (torch.device("cpu"), dev):
+        model = serve.build_model(cfg, 0, d, "numpy")
+        prompt, inputs = serve.make_inputs(cfg, 0, 4, 16, d)
+        force = runs["cpu"]["tokens"] if "cpu" in runs else None
+        runs[d.type] = serve.generate(cfg, model, prompt, 8, 64,
+                                      inputs=inputs, force=force,
+                                      keep_logits=True)
+    got, exp = runs["cuda"]["logits"], runs["cpu"]["logits"]
+    assert serve.tolerance_error(got, exp, dtype) is None
+    assert serve.greedy_mismatches(got, exp, dtype)[0] == 0
+    assert (fops.flash_attention.launches > f0) == (arch != "xlstm-350m")
+
+
+def test_family_smoke_serves_on_cuda_hold_against_reference_file(dev):
+    """The JAX reference's committed smoke serves of the four families."""
+    from repro_torch.launch import serve
+    serve.float32_matmuls()
+    out = serve.hold_against_reference(dev, serve.REFERENCE_FAMILIES)
+    assert sorted(out) == sorted(FAMILY_ARCHS)
+    assert all(r["float32"]["max_abs_err"] <= 2e-5 for r in out.values())
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,route", [
+    (8, 16, 16, 512, 512, 64, False, "wgmma"),    # seamless's encoder
+    (8, 16, 8, 1536, 1536, 128, True, "wgmma"),   # internvl2's prefill
+    (8, 16, 16, 1, 512, 64, False, "split"),      # seamless's cross decode
+    (8, 16, 8, 1, 2048, 128, False, "split")])    # internvl2's decode
+def test_flash_attention_family_shapes_take_fast_routes(dev, b, h, kv, sq,
+                                                        sk, d, causal, route):
+    """The families' new call shapes, bf16, ragged lengths (one row of
+    length 1), on the route each should take, against ``mha_ref``."""
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
+    q, k, v = mk(b, h, sq, d), mk(b, kv, sk, d), mk(b, kv, sk, d)
+    lens = torch.randint(1, sk + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0], lens[-1] = sk, 1
+    assert fops.route(q, k, v) == route
+    before = dict(fops.flash_attention.by_route)
+    got = fops.flash_attention(q, k, v, lens, causal)
+    assert fops.flash_attention.by_route[route] == before[route] + 1
+    assert fops.flash_attention.by_route["simt"] == before["simt"]
+    exp = fref.mha_ref(q, k, v, lens, causal).bfloat16()
+    torch.cuda.synchronize()
+    assert _within(got, exp, fops.TOLERANCE[torch.bfloat16])
+
+
 # --- the backward kernels and the training step -------------------------------
 
 BWD_ATTN = [(8, 24, 8, 511, 511, 64, True),   # the granite training call

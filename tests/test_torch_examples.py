@@ -1,7 +1,8 @@
 """The port's examples run on the CPU at their smallest size
 (``--device cpu``): ``examples/quickstart_torch.py`` (an eGPU program
-held against numpy, then one LM training step) and
-``examples/train_lm_torch.py`` (a few steps with checkpoints)."""
+held against numpy, then one LM training step),
+``examples/train_lm_torch.py`` (a few steps with checkpoints) and
+``examples/serve_lm_torch.py`` (qwen3-moe's smoke serve)."""
 import importlib.util
 import pathlib
 
@@ -32,9 +33,16 @@ def test_train_lm_torch_on_cpu():
     assert len(losses) == 3 and np.isfinite(losses).all()
 
 
+def test_serve_lm_torch_on_cpu(capsys):
+    toks = _load("serve_lm_torch").main(["--device", "cpu"])
+    assert toks.shape == (8, 25) and ((toks >= 0) & (toks < 256)).all()
+    out = capsys.readouterr().out
+    assert "prefill: 8 x 16" in out and "useful tokens/s" in out
+
+
 def test_examples_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for name in ("quickstart_torch", "train_lm_torch"):
+    for name in ("quickstart_torch", "train_lm_torch", "serve_lm_torch"):
         with pytest.raises(RuntimeError, match="--device cpu"):
             _load(name).main([])

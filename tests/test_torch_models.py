@@ -335,6 +335,10 @@ def test_forward_equals_reference(arch, dtype):
 
 
 def test_unported_family_raises():
-    cfg = tconfigs.get_smoke("zamba2-1p2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every family of the assigned architectures is ported; a family
+    that none of them has still raises."""
+    assert set(tapi.FAMILIES) == {tconfigs.get(a).family
+                                  for a in tconfigs.ARCHS}
+    cfg = tconfigs.get_smoke("zamba2-1p2b").replace(family="rnn")
+    with pytest.raises(NotImplementedError, match="families"):
         tapi.init_params(torch.Generator(), cfg)
