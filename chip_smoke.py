@@ -131,7 +131,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    expert GEMM; prefill seconds, decode ms a step, useful tokens a
    second, peak memory, finite logits; each model freed before the
    next; then ``flash_attention`` held against its plain version and
-   timed at each family's prefill and decode shapes.
+   timed at each family's prefill and decode shapes;
+8. the other families' training, after the serves: the smoke trainers
+   of zamba2, xlstm, seamless-m4t and internvl2 (float32 and bfloat16,
+   ``--init numpy``, 5 steps) against the JAX reference's runs in
+   ``training/reference_train.json`` (``train.held``), each run's
+   attention launches by kernel and route read around it (bfloat16 on
+   ``wgmma``, float32 on ``simt``, xlstm none); then each family at its
+   published widths and depth through ``train.main`` (bf16 compute, f32
+   master and AdamW state, remat, 8 x 512 tokens, seamless with 512
+   frames, internvl2 with 1,024 patches, 4 steps from seed 0), its
+   counters zeroed just before and read just after: every attention
+   forward and recompute on ``wgmma``, every backward on ``dq`` +
+   ``dkdv`` of the ``wgmma`` route, no expert GEMM; losses and gradient
+   norms finite, no step skipped; seconds a step, tokens/s,
+   ``train_mfu`` with its FLOP count, peak memory, one more step under
+   ``torch.profiler``; each model freed before the next; then the
+   attention backward held against ``mha_ref_bwd`` and timed at each new
+   shape (zamba2's shared block, seamless's encoder, decoder and
+   cross-attention, internvl2's 1,535 rows at head_dim 128) as in phase 6.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -1304,11 +1322,21 @@ def step_programs(cfg, n=64) -> dict:
     return out
 
 
+#: profiles of one window at most, and the pause (s) that opens and closes
+#: the profiled call inside the tracer's window (:func:`window`)
+TRACE_TRIES, TRACE_PAUSE_S = 3, 0.05
+
+
 def window(fn, steps: int) -> dict:
     """Device kernels and torch ops a step over one call of ``fn`` (which
     runs ``steps`` steps), by ``torch.profiler`` after one warm-up cycle
-    of it (the tracer can drop a kernel launched as it starts); and host
-    µs a step of another, unprofiled call (ended by a synchronise)."""
+    of it, with the eGPU kernels' ``step``-route launches a step counted
+    by their wrappers over the same call; and host µs a step of another,
+    unprofiled call (ended by a synchronise).  The tracer can drop kernel
+    records at the edges of its window (seen on the card: 48 of 64), so
+    the call starts and ends a pause inside it, and the window is
+    profiled again, up to ``TRACE_TRIES`` times, while it traced fewer
+    kernels than the wrappers launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -1317,30 +1345,40 @@ def window(fn, steps: int) -> dict:
     fn()
     torch.cuda.synchronize()
     host_us = 1e6 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
-    ev = prof.key_averages()
-    kern = {}
-    for e in ev:
-        if e.key.startswith("ProfilerStep"):     # the schedule's own span
-            continue
-        if dev_us(e) > 0 and str(getattr(e, "device_type", "")
-                                 ).endswith("CUDA"):
-            k = re.match(r"(?:void )?([\w:]+)", e.key.replace(
-                "(anonymous namespace)::", "")).group(1).split("::")[-1]
-            kern[k] = kern.get(k, 0) + e.count
+    for attempt in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(TRACE_PAUSE_S)
+            c0 = step_launches()
+            fn()
+            torch.cuda.synchronize()
+            launched = sum(minus(step_launches(), c0).values())
+            time.sleep(TRACE_PAUSE_S)
+        ev = prof.key_averages()
+        kern = {}
+        for e in ev:
+            if e.key.startswith("ProfilerStep"):     # the schedule's own span
+                continue
+            if dev_us(e) > 0 and str(getattr(e, "device_type", "")
+                                     ).endswith("CUDA"):
+                k = re.match(r"(?:void )?([\w:]+)", e.key.replace(
+                    "(anonymous namespace)::", "")).group(1).split("::")[-1]
+                kern[k] = kern.get(k, 0) + e.count
+        if not kern or sum(kern.values()) >= launched:
+            break
+        log(f"[profile-egpu] the tracer kept {sum(kern.values())} of the "
+            f"{launched} kernels launched (try {attempt} of {TRACE_TRIES})")
     aten = {e.key: e.count for e in ev if e.key.startswith("aten::")}
     return {"kernels": sum(kern.values()) / steps if kern else None,
             "kernel_names": kern, "torch_ops": sum(aten.values()) / steps,
-            "torch_op_names": aten, "host_us": host_us}
+            "torch_op_names": aten, "host_us": host_us,
+            "launched": launched / steps, "tries": attempt}
 
 
 def profile_steps(dev) -> dict:
@@ -1348,8 +1386,8 @@ def profile_steps(dev) -> dict:
     (``executor.run_steps`` over a program of nothing but such steps, one
     core; and an 18-core fleet whose every step mixes the five FP
     opcodes) against the previous composition on the same trace rows.
-    Raises if a step of the main path issues more than its one kernel or
-    any torch op around it."""
+    Raises unless a step of the main path launches its one kernel (by
+    the wrappers' counts and by the trace) and no torch op around it."""
     import torch
     from repro_torch.core import (Asm, benchmark_config, executor,
                                   init_state, run_program)
@@ -1407,13 +1445,19 @@ def profile_steps(dev) -> dict:
             k = "not measured" if w["kernels"] is None else \
                 f"{w['kernels']:.2f}"
             log(f"[profile-egpu] {kind} steps, {design}: {k} kernels a step "
-                f"{w['kernel_names']}, {w['torch_ops']:.2f} torch ops a step "
+                f"{w['kernel_names']} (step route launched "
+                f"{w['launched']:.2f}, traced in try {w['tries']}), "
+                f"{w['torch_ops']:.2f} torch ops a step "
                 f"{w['torch_op_names']}, host {w['host_us']:.1f} us a step "
                 "(unprofiled)")
         now = got["now"]
-        if now["torch_ops"] or now["kernels"] not in (None, 1.0):
-            raise AssertionError(f"{kind}: the main path's step issues "
-                                 f"{now['kernels']} kernels and "
+        if (now["torch_ops"] or now["launched"] != 1.0
+                or now["kernels"] not in (None, 1.0)):
+            raise AssertionError(f"{kind}: the main path's step launches "
+                                 f"{now['launched']} kernels by its "
+                                 f"wrappers' counts, {now['kernels']} by the "
+                                 f"trace ({now['kernel_names']}, "
+                                 f"{now['tries']} tries) and "
                                  f"{now['torch_op_names']}, expected one "
                                  "kernel and no torch op")
     return out
@@ -1833,7 +1877,8 @@ def train_reference(dev) -> dict:
     from repro_torch.launch import train
     t0 = time.perf_counter()
     before = bwd_counts()["flash_attention"]
-    out = train.hold_against_reference(dev)
+    out = train.hold_against_reference(dev, archs={"granite-moe-3b-a800m",
+                                                   "yi-9b"})
     moved = {k: {r: c - before[k][r] for r, c in v.items()}
              for k, v in bwd_counts()["flash_attention"].items()}
     if not all(v["wgmma"] and v["simt"] for v in moved.values()):
@@ -1977,14 +2022,16 @@ KERNEL_FAMILIES = (("flash_attention backward", ("fa_bwd_",)),
                                          "wavefront_matmul_kernel")))
 
 
-def profile_train_step(model, opt_state, step_fn, ds, dev, gpu) -> dict:
-    """One more full-width step (step 7, after the counted run) under
+def profile_train_step(model, opt_state, step_fn, ds, dev, gpu,
+                       step=TRAIN["steps"], tag="[train-profile]") -> dict:
+    """One more full-width step (``step``, after the counted run) under
     ``torch.profiler``: each kernel's share of the step's device time,
-    and the hand-written kernels' by family."""
+    and the hand-written kernels' by family; log lines begin with
+    ``tag``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
-             ds.next_batch(TRAIN["steps"]).items()}
+             ds.next_batch(step).items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1996,7 +2043,7 @@ def profile_train_step(model, opt_state, step_fn, ds, dev, gpu) -> dict:
     kern = [e for e in prof.key_averages() if dev_us(e) > 0
             and str(getattr(e, "device_type", "")).endswith("CUDA")]
     if not kern:
-        log("[train-profile] the profiler showed no device time: not "
+        log(f"{tag} the profiler showed no device time: not "
             "measured")
         return {}
     busy = sum(dev_us(e) for e in kern)
@@ -2006,19 +2053,19 @@ def profile_train_step(model, opt_state, step_fn, ds, dev, gpu) -> dict:
                      if any(k in e.key for k in keys)), "other")
         fam[name] = fam.get(name, 0) + dev_us(e)
     shares = {k: v / busy for k, v in fam.items()}
-    log(f"[train-profile] one step: device busy {busy / 1e6:.4f}s of "
+    log(f"{tag} one step: device busy {busy / 1e6:.4f}s of "
         f"{wall:.4f}s profiled wall ({100 * busy / 1e6 / wall:.1f} % busy); "
         f"share of device time by family: "
         + ", ".join(f"{k} {100 * v:.1f} %" for k, v in
                     sorted(shares.items(), key=lambda x: -x[1]))
         + f" ({gpu})")
     for e in sorted(kern, key=dev_us, reverse=True)[:12]:
-        log(f"[train-profile]   {100 * dev_us(e) / busy:5.1f} %  "
+        log(f"{tag}   {100 * dev_us(e) / busy:5.1f} %  "
             f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} {e.key[:80]}")
     # the attention backward by kernel: its dq and dkdv apart
     for e in kern:
         if "fa_bwd_" in e.key:
-            log(f"[train-profile]   attention backward {e.key[:60]}: "
+            log(f"{tag}   attention backward {e.key[:60]}: "
                 f"{dev_us(e) / 1e3:.4f} ms in {e.count} launches, "
                 f"{dev_us(e) / 1e3 / max(1, e.count):.5f} ms each")
     return {"busy_s": busy / 1e6, "wall_s": wall, "families": shares}
@@ -2042,6 +2089,79 @@ def attn_bwd_work(q, k, lens, causal) -> tuple:
     return nbytes, 10 * h * d * pairs
 
 
+def attn_bwd_row(q, k, v, do, lens, causal) -> dict:
+    """The attention backward (``dq`` + ``dkdv``) at one call's bf16
+    inputs: held against ``mha_ref_bwd`` (``BWD_TOLERANCE``), then its
+    ``wgmma`` route, its ``simt`` route (the previous design) and
+    ``torch.autograd.grad`` of ``scaled_dot_product_attention`` timed the
+    same way (by CUDA graph where the library's autograd captures, else
+    all three eagerly by CUDA events; ``wgmma`` before and after the
+    others), each route by CUDA graph too, the plain version eagerly, with
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    o = fops.flash_attention(q, k, v, lens, causal)
+    routed = fops.route_bwd(q, k, v, o, do)
+    if routed != "wgmma":
+        raise AssertionError(f"the attention backward at {tuple(q.shape)} "
+                             f"{tuple(k.shape)} routes to {routed}")
+    got = fops.attention_bwd(q, k, v, o, do, lens, causal)
+    exp = fref.mha_ref_bwd(q, k, v, o, do, lens, causal)
+    torch.cuda.synchronize()
+    err = max(within(x, y, fops.BWD_TOLERANCE[q.dtype])
+              for x, y in zip(got, exp))
+    del got, exp
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                           enable_gqa=True)
+    lib = lambda: torch.autograd.grad(lib_o, (qg, kg, vg), do,
+                                      retain_graph=True)
+    kern = {r: (lambda r=r: fops.run_bwd_route(r, q, k, v, o, do, lens,
+                                               causal))
+            for r in fops.BWD_ROUTES}
+    graph = lambda fn: graph_ms(fn, reps=5, rounds=3)
+    try:
+        library_ms = graph(lib)
+        timer, timing = graph, "CUDA graph"
+    except RuntimeError as refused:
+        torch.cuda.synchronize()
+        timer = lambda fn: time_ms(fn, reps=10, rounds=3)
+        timing = (f"eager, CUDA events (the autograd of "
+                  f"scaled_dot_product_attention does not capture: "
+                  f"{str(refused).splitlines()[0][:80]})")
+        library_ms = timer(lib)
+    ms = [timer(kern["wgmma"])]
+    simt_ms = timer(kern["simt"])
+    plain_ms = time_ms(lambda: fref.mha_ref_bwd(q, k, v, o, do, lens,
+                                                causal), reps=2, rounds=3)
+    ms.append(timer(kern["wgmma"]))
+    graph_by_route = {r: graph(kern[r]) for r in fops.BWD_ROUTES}
+    nbytes, flops = attn_bwd_work(q, k, lens, causal)
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+    return {"max_abs_err": err, "ms": statistics.median(ms),
+            "kernel_route": "wgmma", "simt_ms": simt_ms, "timing": timing,
+            "graph_ms": graph_by_route, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "causal": causal, "shape": [list(q.shape), list(k.shape)]}
+
+
+def attn_bwd_line(row: dict) -> str:
+    from repro_torch.kernels.flash_attention import ops as fops
+    import torch
+    return (f"flash_attention backward {row['call']} {row['shape']} causal="
+            f"{row['causal']} (dq + dkdv), {row['timing']}: wgmma "
+            f"{row['ms']:.5f} ms, simt (the previous design) "
+            f"{row['simt_ms']:.5f} ms, library {row['library_ms']:.5f} ms "
+            f"(autograd of SDPA); by CUDA graph wgmma "
+            f"{row['graph_ms']['wgmma']:.5f} ms, simt "
+            f"{row['graph_ms']['simt']:.5f} ms; plain {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}); wgmma "
+            f"within {fops.BWD_TOLERANCE[torch.bfloat16]} of mha_ref_bwd "
+            f"(max abs err {row['max_abs_err']:.3g})")
+
+
 def train_kernels(dev, full: dict) -> list:
     """The backward kernels at the training shapes, held against their
     plain versions and timed in turns: the attention backward (``dq`` +
@@ -2051,8 +2171,6 @@ def train_kernels(dev, full: dict) -> list:
     expert-GEMM gradient product (``dA``, ``dB``, up and down) against
     ``torch.bmm``; with the bound."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
     cfg = full["cfg"]
     g = torch.Generator(device=dev).manual_seed(13)
@@ -2067,43 +2185,7 @@ def train_kernels(dev, full: dict) -> list:
     q, k, v, do = rn(b, h, s, hd), rn(b, kv, s, hd), rn(b, kv, s, hd), \
         rn(b, h, s, hd)
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
-    o = fops.flash_attention(q, k, v, lens, True)
-    routed = fops.route_bwd(q, k, v, o, do)
-    if routed != "wgmma":
-        raise AssertionError(f"the training call routes to {routed}")
-    got = fops.attention_bwd(q, k, v, o, do, lens, True)
-    exp = fref.mha_ref_bwd(q, k, v, o, do, lens, True)
-    torch.cuda.synchronize()
-    err = max(within(x, y, fops.BWD_TOLERANCE[bf]) for x, y in zip(got, exp))
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                           enable_gqa=True)
-    lib = lambda: torch.autograd.grad(lib_o, (qg, kg, vg), do,
-                                      retain_graph=True)
-    kern = {r: (lambda r=r: fops.run_bwd_route(r, q, k, v, o, do, lens,
-                                               True))
-            for r in fops.BWD_ROUTES}
-    graph = lambda fn: graph_ms(fn, reps=5, rounds=3)
-    # both routes and the library the same way: by CUDA graph where the
-    # library's autograd captures, else all three eagerly by CUDA events
-    try:
-        library_ms = graph(lib)
-        timer, timing = graph, "CUDA graph"
-    except RuntimeError as refused:
-        torch.cuda.synchronize()
-        timer = lambda fn: time_ms(fn, reps=10, rounds=3)
-        timing = (f"eager, CUDA events (the autograd of "
-                  f"scaled_dot_product_attention does not capture: "
-                  f"{str(refused).splitlines()[0][:80]})")
-        library_ms = timer(lib)
-    ms = [timer(kern["wgmma"])]
-    simt_ms = timer(kern["simt"])
-    plain_ms = time_ms(lambda: fref.mha_ref_bwd(q, k, v, o, do, lens, True),
-                       reps=2, rounds=3)
-    ms.append(timer(kern["wgmma"]))
-    graph_by_route = {r: graph(kern[r]) for r in fops.BWD_ROUTES}
-    nbytes, flops = attn_bwd_work(q, k, lens, True)
-    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+    timed = attn_bwd_row(q, k, v, do, lens, True)
     row = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
@@ -2112,23 +2194,11 @@ def train_kernels(dev, full: dict) -> list:
                           "attention.py:38)",
            "launches": sum(sum(r.values()) for r in
                            full["bwd"]["flash_attention"].values()),
-           "routes": full["bwd"]["flash_attention"],
-           "max_abs_err": err, "ms": statistics.median(ms),
-           "kernel_route": "wgmma", "simt_ms": simt_ms, "timing": timing,
-           "graph_ms": graph_by_route,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           "routes": full["bwd"]["flash_attention"], **timed,
            "library": "torch.autograd.grad of scaled_dot_product_attention",
-           "bound_ms": max(t_b, t_f) * 1e3,
-           "bound_by": "bytes" if t_b >= t_f else "operations",
-           "shape": [list(q.shape), list(k.shape)], "phase": "train"}
+           "phase": "train", "call": f"{cfg.name} attention"}
     rows.append(row)
-    log(f"[train-timing] flash_attention backward {row['shape']} (dq + dkdv), "
-        f"{timing}: wgmma {row['ms']:.5f} ms, simt (the previous design) "
-        f"{simt_ms:.5f} ms, library {library_ms:.5f} ms (autograd of SDPA); "
-        f"by CUDA graph wgmma {graph_by_route['wgmma']:.5f} ms, simt "
-        f"{graph_by_route['simt']:.5f} ms; plain {plain_ms:.4f} ms, bound "
-        f"{row['bound_ms']:.6f} ms ({row['bound_by']}); wgmma within "
-        f"{fops.BWD_TOLERANCE[bf]} of mha_ref_bwd (max abs err {err:.3g})")
+    log(f"[train-timing] {attn_bwd_line(row)}")
     # the expert GEMMs' gradient products, as matmul_bwd launches them
     cap = max(1, int(round(b * s * cfg.top_k / e)))
     mp = -(-cap // mops.PAD_K) * mops.PAD_K
@@ -2656,6 +2726,271 @@ def serve_families(dev, gpu: str) -> dict:
     return {"serves": out, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the other families' training (zamba2, xlstm, seamless-m4t,
+# internvl2)
+# ---------------------------------------------------------------------------
+
+#: each family at its published widths and depth: bf16 compute, f32
+#: master parameters and AdamW state, remat, 8 x 512 tokens (seamless
+#: also 512 frames, internvl2 1,024 patches), 4 steps from seed 0
+FAMILY_TRAIN = dict(archs=("zamba2-1p2b", "xlstm-350m",
+                           "seamless-m4t-large-v2", "internvl2-2b"),
+                    batch=8, seq=512, steps=4, seed=0)
+
+
+def train_families_reference(dev, gpu: str) -> dict:
+    """The four smoke trainers, float32 and bfloat16, on the card against
+    the JAX reference's runs in ``training/reference_train.json``
+    (``train.held``), each run's attention launches by route read around
+    it: bfloat16 forward on ``wgmma`` and backward on ``dq`` + ``dkdv`` of
+    the ``wgmma`` route, float32 on ``simt``; xlstm none."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    out = {}
+    for arch in FAMILY_TRAIN["archs"]:
+        for dt in ("float32", "bfloat16"):
+            f0, b0 = route_counts()["flash_attention"], \
+                bwd_counts()["flash_attention"]
+            res = train.hold_against_reference(dev, archs={arch},
+                                               dtypes={dt})
+            fwd = {r: n - f0[r] for r, n in
+                   route_counts()["flash_attention"].items()}
+            bwd = {k: {r: n - b0[k][r] for r, n in v.items()} for k, v in
+                   bwd_counts()["flash_attention"].items()}
+            route = "wgmma" if dt == "bfloat16" else "simt"
+            none = arch.startswith("xlstm")
+            ok = all((n > 0) == (r == route and not none)
+                     for r, n in fwd.items()) and \
+                all((n > 0) == (r == route and not none)
+                    for v in bwd.values() for r, n in v.items())
+            if not ok:
+                raise AssertionError(f"{arch} {dt} smoke trainer: attention "
+                                     f"launches forward {fwd}, backward "
+                                     f"{bwd}; expected all on {route}"
+                                     + (" (none: no attention)" if none
+                                        else ""))
+            name = f"{arch} {dt}"
+            out[name] = dict(res[name], forward=fwd, backward=bwd)
+            run = next(r for r in json.loads(train.REFERENCE.read_text())
+                       ["runs"] if r["arch"] == arch and r["dtype"] == dt)
+            fmt = lambda v: f"{v:.3g}" if isinstance(v, float) else \
+                "[" + ", ".join(f"{x:.3g}" for x in v) + "]"
+            log(f"[families-train-ref] {name}: every step's loss, grad_norm "
+                f"and lr held against the reference's (train.held: within "
+                f"{train.TOLERANCE[dt]} relative"
+                + (f", from step 1 within {run['rtol']}" if "rtol" in run
+                   else "")
+                + (f"; grad_norm on the trajectory at step 0 only, and at "
+                   f"every step on the reference's own weights "
+                   f"({run['weights']})" if "weights" in run else "")
+                + (f"; {run['why']}" if "why" in run else "")
+                + "); largest relative errors "
+                + ", ".join(f"{k} {fmt(v)}" for k, v in res[name].items()
+                            if k not in ("gap", "on_weights", "trajectory"))
+                + ("; on the reference's own weights "
+                   + ", ".join(f"{k} {fmt(v)}" for k, v in
+                               res[name]["on_weights"].items())
+                   + "; the trajectory's grad_norm, not held from step 1: "
+                   + fmt(res[name]["trajectory"])
+                   if "on_weights" in res[name] else "")
+                + ("; the reference's own bfloat16-float32 gap by step "
+                   + ", ".join(f"{k} {fmt(v)}" for k, v in
+                               res[name]["gap"].items())
+                   if "gap" in res[name] else "")
+                + f"; attention launches forward {fwd}, backward {bwd} "
+                f"({gpu})")
+    log(f"[families-train-ref] {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def family_train_launches(cfg, steps: int) -> tuple:
+    """(forward, backward) ``flash_attention`` launches a family's
+    training run must make: each attention forward once, and again in the
+    backward where ``remat`` rebuilds its layer (zamba2's shared block is
+    outside its checkpoints), and one ``dq`` + ``dkdv`` each."""
+    if cfg.family == "xlstm":
+        return 0, 0
+    if cfg.family == "mamba_hybrid":
+        from repro_torch.models import zamba2
+        sites = len(zamba2._groups(cfg))
+        return sites * steps, sites * steps
+    n = cfg.enc_layers + 2 * cfg.dec_layers if cfg.family == "encdec" \
+        else cfg.n_layers
+    return (2 if cfg.remat else 1) * n * steps, n * steps
+
+
+def family_train_flops(cfg, model, batch: int, seq: int) -> tuple:
+    """(FLOPs of one training step, the formula): 6 x each weight x the
+    rows it multiplies (forward 2, backward 4; remat's recompute, the
+    embedding lookup and attention's and the scans' sequence-quadratic
+    terms not counted).  Rows: the decoder's tokens ``batch x (seq - 1)``;
+    seamless's encoder and its cross K/V projections the ``batch x seq``
+    frames; internvl2's connector ``batch x patches``, its blocks ``batch
+    x (patches + seq - 1)``; zamba2's shared block once a site."""
+    p = model.params()
+    tok = batch * (seq - 1)
+    head = _numel(p["unembed"]) + _numel(p.get("ln_f", p.get("ln_dec")))
+    if cfg.family == "mamba_hybrid":
+        from repro_torch.models import zamba2
+        sites = len(zamba2._groups(cfg))
+        parts = [("mamba", _numel(p["mamba"]), tok),
+                 (f"shared block ({sites} sites)",
+                  sites * _numel(p["shared_attn"]), tok)]
+    elif cfg.family == "xlstm":
+        parts = [("blocks", _numel(p["blocks"]), tok)]
+    elif cfg.family == "encdec":
+        cross_kv = sum(_numel(lp["cross_attn"][w]) for lp in p["dec"]
+                       for w in ("wk", "wv"))
+        frames = batch * seq
+        parts = [("encoder", _numel(p["enc"]) + _numel(p["ln_enc"]),
+                  frames), ("cross K/V", cross_kv, frames),
+                 ("decoder", _numel(p["dec"]) - cross_kv, tok)]
+    elif cfg.family == "vlm":
+        pre = batch * cfg.num_patches
+        parts = [("connector", _numel(p["connector"]), pre),
+                 ("blocks", _numel(p["blocks"]), pre + tok)]
+    else:
+        parts = [("blocks", _numel(p["blocks"]), tok)]
+    parts.append(("head", head, tok))
+    flops = sum(6 * w * r for _, w, r in parts)
+    return flops, " + ".join(f"6 x {w} {name} weights x {r} rows"
+                             for name, w, r in parts)
+
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def train_family_full(dev, gpu: str, arch: str) -> dict:
+    """Phase 8's main path for one family: ``launch.train.main`` at its
+    published widths and depth, its kernel counters zeroed just before
+    and read just after; then one more step profiled."""
+    import torch
+    from repro_torch.launch import train
+    t = FAMILY_TRAIN
+    argv = ["--arch", arch, "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--steps", str(t["steps"]), "--seed",
+            str(t["seed"]), "--log-every", "1", "--device", str(dev)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_lm_counters()
+    rec = {}
+    t0 = time.perf_counter()
+    losses = train.main(argv, record=rec)
+    wall = time.perf_counter() - t0
+    routes, bwd = route_counts(), bwd_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, steps = rec["cfg"], rec["steps"]
+    model, opt_state, step_fn, ds = rec.pop("state")
+    if len(losses) != t["steps"] or not np.isfinite(losses).all() or \
+            not all(r["finite"] and np.isfinite(r["grad_norm"])
+                    for r in steps):
+        raise AssertionError(f"{arch} training: steps {steps}")
+    n_fwd, n_bwd = family_train_launches(cfg, t["steps"])
+    want = {"flash_attention": {"wgmma": n_fwd, "split": 0, "simt": 0},
+            "wavefront_matmul": {"wgmma": 0, "small_m": 0, "simt": 0}}
+    want_bwd = {"flash_attention": {k: {"wgmma": n_bwd, "simt": 0}
+                                    for k in ("dq", "dkdv")},
+                "wavefront_matmul": {p: {"wgmma": 0, "small_m": 0,
+                                         "simt": 0} for p in ("da", "db")}}
+    if routes != want or bwd != want_bwd:
+        raise AssertionError(f"{arch} training launches by route {routes}, "
+                             f"backward {bwd}; expected {want}, {want_bwd}")
+    step_s = statistics.median(r["seconds"] for r in steps[1:])
+    tokens = rec["tokens_per_step"]
+    flops, formula = family_train_flops(cfg, model, t["batch"], t["seq"])
+    mfu = flops / step_s / PEAK_BF16_S
+    n_params = sum(p.numel() for p in model.parameters())
+    extra = {"encdec": f" + {t['seq']} frames", "vlm":
+             f" + {cfg.num_patches} patches"}.get(cfg.family, "")
+    for r in steps:
+        log(f"[families-train] {cfg.name} step {r['step']}: loss "
+            f"{r['loss']:.4f} grad_norm {r['grad_norm']:.4f} lr "
+            f"{r['lr']:.3e} {r['seconds']:.3f}s ({gpu})")
+    log(f"[families-train] {cfg.name} ({n_params / 1e9:.3f} B parameters) "
+        f"full width and depth, bf16 compute, f32 master and AdamW state, "
+        f"remat {cfg.remat}, {t['batch']} x {t['seq']} tokens{extra}, "
+        f"{t['steps']} steps in {wall:.1f}s (init included): losses and "
+        f"gradient norms finite, no step skipped; seconds a step (median "
+        f"of steps 2-{t['steps']}) {step_s:.4f}; {tokens / step_s:.1f} "
+        f"tokens/s ({tokens} tokens a step); peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated) ({gpu})")
+    log(f"[families-train] {cfg.name} train_mfu {100 * mfu:.3f} % = "
+        f"{flops} FLOPs / {step_s:.4f} s / 989e12 FLOP/s; FLOPs = "
+        f"{formula} ({gpu})")
+    log(f"[families-train] {cfg.name} launches by route: forward {routes}; "
+        f"backward {bwd}")
+    shares = profile_train_step(model, opt_state, step_fn, ds, dev, gpu,
+                                step=t["steps"],
+                                tag=f"[families-profile] {cfg.name}")
+    del model, opt_state, step_fn, ds, rec
+    return {"cfg": cfg, "routes": routes, "bwd": bwd, "step_s": step_s,
+            "tokens_s": tokens / step_s, "mfu": mfu, "flops": flops,
+            "peak": peak, "shares": shares, "losses": losses,
+            "params": n_params}
+
+
+def family_bwd_cases(dev) -> list:
+    """The attention backward's inputs (bf16) at the new training shapes:
+    zamba2's shared block, seamless's encoder (non-causal), decoder
+    self-attention and cross-attention (511 rows over 512 frames),
+    internvl2's 1,024 patches + 511 tokens at head_dim 128, G = 2."""
+    import torch
+    from repro_torch import configs
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, s = FAMILY_TRAIN["batch"], FAMILY_TRAIN["seq"]
+    out = []
+    for arch in FAMILY_TRAIN["archs"]:
+        cfg = configs.get(arch)
+        h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+        if cfg.family == "mamba_hybrid":
+            calls = [("shared block", s - 1, s - 1, True)]
+        elif cfg.family == "encdec":
+            calls = [("encoder", s, s, False), ("decoder self", s - 1, s - 1,
+                                               True),
+                     ("cross", s - 1, s, False)]
+        elif cfg.family == "vlm":
+            n = cfg.num_patches + s - 1
+            calls = [("blocks", n, n, True)]
+        else:
+            continue
+        for call, sq, sk, causal in calls:
+            rn = lambda *shape: torch.randn(shape, generator=g,
+                                            device=dev).to(torch.bfloat16)
+            out.append((f"{cfg.name} {call}", rn(b, h, sq, hd),
+                        rn(b, kv, sk, hd), rn(b, kv, sk, hd),
+                        rn(b, h, sq, hd),
+                        torch.full((b,), sk, dtype=torch.int32, device=dev),
+                        causal))
+    return out
+
+
+def train_families(dev, gpu: str) -> dict:
+    """Phase 8: the smoke trainers against the reference's file, each
+    family at full width (its own main path), then the attention backward
+    held and timed at the new shapes."""
+    import torch
+    ref = train_families_reference(dev, gpu)
+    runs = {}
+    for arch in FAMILY_TRAIN["archs"]:
+        runs[arch] = train_family_full(dev, gpu, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = []
+    for call, q, k, v, do, lens, causal in family_bwd_cases(dev):
+        row = dict(attn_bwd_row(q, k, v, do, lens, causal), call=call,
+                   phase="train")
+        log(f"[families-timing] {attn_bwd_line(row)} ({gpu})")
+        rows.append(row)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return {"ref": ref, "runs": runs, "rows": rows}
+
+
 def ptxas_report(logs: dict) -> list:
     """``(kernel, function, registers, spills, static shared bytes)`` for
     each function nvcc's ``-Xptxas -v`` reported."""
@@ -2850,22 +3185,47 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += train_kernels(dev, trained)
+    granite_train = trained["routes"]["flash_attention"]
     del trained
     gc.collect()
     torch.cuda.empty_cache()
 
     fam = serve_families(dev, gpu)
+    fam_train = train_families(dev, gpu)
+    # the attention's launches by path: each serve's and each trainer's
+    # (each counted from 0 around its own run)
     attn = next(k for k in kernels if k["name"] == "flash_attention")
+    trains = {TRAIN["arch"]: granite_train,
+              **{a: r["routes"]["flash_attention"]
+                 for a, r in fam_train["runs"].items()}}
     attn["paths"] = {"serve granite-moe-3b-a800m": attn["launches"],
                      **{f"serve {n}": r["launches"]
-                        for n, r in fam["serves"].items()}}
+                        for n, r in fam["serves"].items()},
+                     **{f"train {a}": sum(r.values())
+                        for a, r in trains.items()}}
     attn["launches"] = sum(attn["paths"].values())
     for r in fam["serves"].values():
         for part in ("prefill_routes", "decode_routes"):
             for route, n in r[part].items():
                 attn["routes"][route] += n
+    for r in trains.values():
+        for route, n in r.items():
+            attn["routes"][route] += n
     attn["cases"] += fam["rows"]
     attn["max_abs_err"] = max(c["max_abs_err"] for c in attn["cases"])
+    bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    bwd["paths"] = {f"train {TRAIN['arch']}": bwd["launches"]}
+    for a, r in fam_train["runs"].items():
+        fb = r["bwd"]["flash_attention"]
+        bwd["paths"][f"train {a}"] = sum(sum(v.values())
+                                         for v in fb.values())
+        for kern, by in fb.items():
+            for route, n in by.items():
+                bwd["routes"][kern][route] += n
+    bwd["launches"] = sum(bwd["paths"].values())
+    bwd["cases"] = fam_train["rows"]
+    bwd["max_abs_err"] = max([bwd["max_abs_err"]]
+                             + [c["max_abs_err"] for c in bwd["cases"]])
 
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

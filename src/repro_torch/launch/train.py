@@ -200,15 +200,131 @@ def main(argv=None, record: dict | None = None):
     return losses
 
 
-def hold_against_reference(device, path=REFERENCE) -> dict:
-    """Run each committed reference training run's configuration through
-    :func:`main` on ``device`` (``--init numpy``, the same flags) and hold
-    every step's loss, gradient norm and learning rate to
-    :data:`TOLERANCE`.  Raises ``AssertionError`` on a mismatch; returns
-    the largest relative error of each metric by run."""
+def gap(exp, twin) -> np.ndarray:
+    """The reference's own spread on a run, step by step: the relative
+    distance of its bfloat16 values ``exp`` from its float32 values
+    ``twin`` (both in the reference's file).  Reported beside a bfloat16
+    run; no bound is made of it."""
+    exp, twin = np.asarray(exp, np.float64), np.asarray(twin, np.float64)
+    return np.abs(exp - twin) / np.abs(exp)
+
+
+def held(run: dict, key: str, got) -> np.ndarray:
+    """Which steps of the port's values ``got`` of metric ``key`` hold
+    against the reference's ``run`` (an entry of the reference file):
+    each within :data:`TOLERANCE` relative, from step 1 within the run's
+    own ``rtol`` where it gives one.  A run with ``weights`` has its
+    gradient norm held on its trajectory at step 0 only, where both
+    packages' weights are the same; from step 1 it is held on the
+    reference's own weights instead (:func:`on_reference_weights`).  The
+    run's ``why`` gives the measured reason of each departure."""
+    got, exp = np.asarray(got, np.float64), np.asarray(run[key], np.float64)
+    rtol = np.full(exp.shape, TOLERANCE[run["dtype"]][key])
+    rtol[1:] = run.get("rtol", {}).get(key, rtol[1:])
+    ok = np.abs(got - exp) <= rtol * np.abs(exp)
+    if key == "grad_norm" and "weights" in run:
+        ok[1:] = True
+    return ok
+
+
+def _leaves(tree, prefix: str = "") -> dict:
+    """The leaves of a tree of dicts and lists, by dotted path."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _with_leaves(tree, leaves: dict, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``leaves`` at its path."""
+    if isinstance(tree, dict):
+        return {k: _with_leaves(v, leaves, f"{prefix}.{k}" if prefix
+                                else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_with_leaves(v, leaves, f"{prefix}.{i}" if prefix
+                             else str(i)) for i, v in enumerate(tree)]
+    return leaves[prefix]
+
+
+def save_weights(path, trees) -> None:
+    """Write parameter trees (the reference's layout), one a step from
+    step 1, as bfloat16 bit patterns: for a bfloat16 run that reads each
+    weight only as bfloat16 (xlstm's smoke config does,
+    ``tests/test_torch_families_train.py``) that rounding changes no loss
+    or gradient."""
+    out = {}
+    for step, tree in enumerate(trees, 1):
+        for name, a in _leaves(tree).items():
+            t = torch.from_numpy(np.array(a, np.float32))
+            out[f"{step}:{name}"] = t.to(torch.bfloat16).view(
+                torch.int16).numpy().view(np.uint16)
+    np.savez_compressed(path, **out)
+
+
+def load_weights(path, cfg, seed: int, steps: int) -> list:
+    """The trees of :func:`save_weights`, each step's leaves at float32,
+    after :func:`convert.numpy_params` of ``seed`` for step 0."""
+    template = convert.numpy_params(cfg, seed)
+    trees = [template]
+    with np.load(path) as store:
+        for step in range(1, steps):
+            trees.append(_with_leaves(template, {
+                name: (store[f"{step}:{name}"].astype(np.uint32) << 16)
+                .view(np.float32) for name in _leaves(template)}))
+    return trees
+
+
+def on_reference_weights(run: dict, ref: dict, device,
+                         where=REFERENCE.parent) -> dict:
+    """The port's loss and gradient norm at each step of ``run`` on the
+    reference's own weights of that step (the run's ``weights`` file, in
+    ``where``) and batch: each step's gradient alone, with no trajectory
+    before it."""
+    cfg = configs.get_smoke(run["arch"]).replace(dtype=DTYPES[run["dtype"]])
+    ds = data.SyntheticLM(cfg, ref["batch"], ref["seq"], seed=ref["seed"])
+    trees = load_weights(pathlib.Path(where) / run["weights"], cfg,
+                         ref["seed"], ref["steps"])
+    out = {"loss": [], "grad_norm": []}
+    for step, tree in enumerate(trees):
+        model = convert.from_reference(cfg, tree, device).requires_grad_()
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in ds.next_batch(step).items()}
+        loss = api.loss(cfg, model, batch)
+        loss.backward()
+        out["loss"].append(float(loss.detach()))
+        out["grad_norm"].append(float(opt_mod.global_norm(
+            p.grad for p in model.parameters())))
+    return out
+
+
+def hold_against_reference(device, path=REFERENCE, archs=None,
+                           dtypes=None) -> dict:
+    """Run each committed reference training run's configuration (those of
+    ``archs`` and ``dtypes`` where given) through :func:`main` on
+    ``device`` (``--init numpy``, the same flags) and hold every step's
+    loss, gradient norm and learning rate by :func:`held`; a run with
+    ``weights`` also has its loss and gradient norm on the reference's
+    own weights (:func:`on_reference_weights`) held at every step to
+    :data:`TOLERANCE`.  Raises ``AssertionError`` on a mismatch; returns,
+    by run, the largest relative error of each metric over the steps
+    held; for a run with ``weights``, under ``"on_weights"`` those of its
+    loss and gradient norm on the reference's weights and under
+    ``"trajectory"`` its gradient norm's error at each step; for a
+    bfloat16 run, under ``"gap"``, :func:`gap` at each step where the
+    file has both types of the architecture's run."""
     ref = json.loads(pathlib.Path(path).read_text())
+    f32 = {r["arch"]: r for r in ref["runs"] if r["dtype"] == "float32"}
     out = {}
     for run in ref["runs"]:
+        if (archs is not None and run["arch"] not in archs) or \
+                (dtypes is not None and run["dtype"] not in dtypes):
+            continue
         rec = {}
         main(["--arch", run["arch"], "--smoke", "--steps", str(ref["steps"]),
               "--batch", str(ref["batch"]), "--seq", str(ref["seq"]),
@@ -217,20 +333,40 @@ def hold_against_reference(device, path=REFERENCE) -> dict:
               "--dtype", run["dtype"], "--log-every", str(ref["steps"])],
              record=rec)
         name = f"{run['arch']} {run['dtype']}"
+        twin = f32.get(run["arch"]) if run["dtype"] == "bfloat16" else None
         errs = {}
-        for key, rtol in TOLERANCE[run["dtype"]].items():
+        for key in TOLERANCE[run["dtype"]]:
             got = np.array([r[key] for r in rec["steps"]])
             exp = np.array(run[key])
             if got.shape != exp.shape:
                 raise AssertionError(f"{name}: {got.shape[0]} steps, the "
                                      f"reference {exp.shape[0]}")
             err = np.abs(got - exp) / np.abs(exp)
-            if not (err <= rtol).all():
-                raise AssertionError(f"{name}: {key} {got.tolist()} against "
-                                     f"the reference's {exp.tolist()}: "
-                                     f"relative error {err.max()} beyond "
-                                     f"{rtol}")
+            ok = held(run, key, got)
+            if not ok.all():
+                raise AssertionError(
+                    f"{name}: {key} {got.tolist()} against the reference's "
+                    f"{exp.tolist()}: relative errors {err.tolist()}; steps "
+                    f"{np.flatnonzero(~ok).tolist()} not held")
+            if key == "grad_norm" and "weights" in run:
+                errs["trajectory"] = err.tolist()
+                err = err[:1]
             errs[key] = float(err.max())
+        if "weights" in run:
+            got = on_reference_weights(run, ref, device,
+                                       pathlib.Path(path).parent)
+            errs["on_weights"] = {}
+            for key, vals in got.items():
+                err = np.abs(np.array(vals) - run[key]) / np.abs(run[key])
+                if not (err <= TOLERANCE[run["dtype"]][key]).all():
+                    raise AssertionError(
+                        f"{name}: {key} on the reference's own weights "
+                        f"{vals} against the reference's {run[key]}: "
+                        f"relative errors {err.tolist()}")
+                errs["on_weights"][key] = float(err.max())
+        if twin is not None:
+            errs["gap"] = {k: gap(run[k], twin[k]).tolist()
+                           for k in ("loss", "grad_norm")}
         out[name] = errs
     return out
 

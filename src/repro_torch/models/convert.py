@@ -116,6 +116,11 @@ def _layout(cfg: ModelConfig) -> dict:
     return out
 
 
+def stacked_parts(cfg: ModelConfig) -> tuple:
+    """The top-level parts that the reference stacks on a layer axis."""
+    return tuple(k for k, (kind, *_) in _layout(cfg).items() if kind == STACK)
+
+
 def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
     """A parameter tree in the reference's layout (float32 numpy arrays,
     stacks of layers on a leading layer axis): dense weights normal with

@@ -8,11 +8,14 @@ gradients and two moments already fill most of the card, so a functional
 update that builds the new tree beside the old one does not fit.  Each
 leaf's gradient is dropped as soon as it has been applied.
 
-The reference decays every leaf of two or more dimensions.  Its block
-leaves are stacked on a leading layer axis, so each of them is at least
-two-dimensional and decays, the norm scales included; the port keeps
-one tensor a layer, so a leaf named ``blocks.*`` decays whatever its
-dimensions (:func:`decays`).  ``state_specs`` waits for ``sharding/``.
+The reference decays every leaf of two or more dimensions.  Its stacks
+of like layers (the transformer's ``blocks``, zamba2's ``mamba``,
+seamless-m4t's ``enc`` and ``dec``) hold each leaf on a leading layer
+axis, so each of them is at least two-dimensional and decays, the norm
+scales included; the port keeps one tensor a layer, so a leaf under a
+stacked part decays whatever its dimensions (:func:`decays`), and one
+under a list of layers (xlstm's ``blocks``) only as a matrix.
+``state_specs`` waits for ``sharding/``.
 """
 from __future__ import annotations
 
@@ -67,15 +70,17 @@ def global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def decays(name: str, p: torch.Tensor) -> bool:
+def decays(name: str, p: torch.Tensor, stacked: tuple) -> bool:
     """Whether leaf ``name`` takes decoupled weight decay: a matrix, or a
-    block leaf (the reference's are layer-stacked, so two-dimensional)."""
-    return p.ndim >= 2 or name.startswith("blocks.")
+    leaf under one of the ``stacked`` top-level parts (the reference's
+    are layer-stacked, so two-dimensional; ``convert.stacked_parts``
+    names a config's)."""
+    return p.ndim >= 2 or name.split(".", 1)[0] in stacked
 
 
 @torch.no_grad()
 def apply(params: dict, grads: dict, state: dict, cfg: OptConfig, *,
-          loss: torch.Tensor | None = None):
+          stacked: tuple, loss: torch.Tensor | None = None):
     """One AdamW step on ``params`` and ``state`` in place; returns
     ``(params, state, info)`` with the gradient norm, the learning rate
     and ``finite``.  ``grads`` is consumed: each entry is dropped once
@@ -84,7 +89,9 @@ def apply(params: dict, grads: dict, state: dict, cfg: OptConfig, *,
     ``loss`` (the training step's non-finite sentinel): unless it and the
     gradient norm are finite, every leaf and the count keep their values
     (a ``torch.where`` on the device, leaf by leaf).  Without it the
-    update is unconditional, as the reference's ``apply``."""
+    update is unconditional, as the reference's ``apply``.  ``stacked``:
+    the top-level parts whose leaves decay whatever their dimensions
+    (:func:`decays`)."""
     count = state["count"]
     gnorm = global_norm(grads.values())
     finite = torch.isfinite(gnorm)
@@ -103,7 +110,7 @@ def apply(params: dict, grads: dict, state: dict, cfg: OptConfig, *,
         v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
         del g
         step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        if decays(name, p):
+        if decays(name, p, stacked):
             step = step + cfg.weight_decay * p.float()
         newp = p.float() - lr * step
         del step

@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from ..models import api
+from ..models import api, convert
 from ..models.transformer import tree_map
 from ..models.common import ModelConfig
 from . import compression, optimizer as opt_mod
@@ -81,6 +81,8 @@ def make_train_step(cfg: ModelConfig, ocfg: opt_mod.OptConfig,
             p.grad = None
         return loss, grads
 
+    stacked = convert.stacked_parts(cfg)
+
     def train_step(model, opt_state, batch, ef_residual):
         model.requires_grad_()
         loss, grads = grads_of(model, batch)
@@ -88,7 +90,8 @@ def make_train_step(cfg: ModelConfig, ocfg: opt_mod.OptConfig,
             grads, ef_residual = compression.apply_error_feedback(
                 grads, ef_residual)
         _, opt_state, info = opt_mod.apply(dict(model.named_parameters()),
-                                           grads, opt_state, ocfg, loss=loss)
+                                           grads, opt_state, ocfg, loss=loss,
+                                           stacked=stacked)
         metrics = {"loss": loss, "grad_norm": info["grad_norm"],
                    "lr": info["lr"], "finite": info["finite"].float()}
         return model, opt_state, ef_residual, metrics

@@ -327,6 +327,26 @@ def test_soundness_property(seed, hostile):
                                    hostility=1.0 if hostile else 0.0))
 
 
+def test_predicate_depth_fault_kept_as_the_reference():
+    """A fault of the reference the port keeps (ROADMAP.md queue 3, item
+    10): on the clean program of seed 1,528,340,367 the analyzer admits
+    the program and bounds the predicate depth at 3 with nothing clipped,
+    while the concrete run reaches 4.  Both packages give both numbers."""
+    seed = 1_528_340_367
+    out = {}
+    for name, gen, an, run in (("reference", ref_gen, ref_analyze,
+                                ref_concrete),
+                               ("port", generate_program, analyze,
+                                concrete_run)):
+        img = gen(CFG if name == "port" else tp.config(RCfg, "dp"), seed,
+                  hostility=0.0)
+        rep = an(img, img.threads_active)
+        res = run(img, img.threads_active)
+        assert not rep.errors() and not rep.facts["analysis_clipped"], name
+        out[name] = (rep.facts["max_pred_depth"], res.max_pred_depth)
+    assert out["port"] == out["reference"] == (3, 4)
+
+
 @pytest.mark.parametrize("seed", [0, 3, 5, 7, 9, 13, 17, 21])
 def test_concrete_reference_matches_the_ports_interpreter(seed):
     """The numpy executor equals the port's interpreter on generated

@@ -727,13 +727,24 @@ def test_smoke_train_step_on_cuda_equals_cpu(dev):
     and batch on the card (kernels forward and backward) and on the CPU
     (plain versions): the loss, gradient norm and every updated parameter
     within float32 rounding of the sums' order."""
+    _train_step_on_cuda_equals_cpu(dev, "granite-moe-3b-a800m")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1p2b", "xlstm-350m",
+                                  "seamless-m4t-large-v2", "internvl2-2b"])
+def test_family_smoke_train_step_on_cuda_equals_cpu(dev, arch):
+    """The same for the other families (frames and patches on the card
+    with the tokens)."""
+    _train_step_on_cuda_equals_cpu(dev, arch)
+
+
+def _train_step_on_cuda_equals_cpu(dev, arch):
     from repro_torch import configs
     from repro_torch.launch import serve, train
     from repro_torch.training import data, optimizer
     from repro_torch.training.steps import make_train_step
     serve.float32_matmuls()
-    cfg = configs.get_smoke("granite-moe-3b-a800m").replace(
-        dtype=torch.float32)
+    cfg = configs.get_smoke(arch).replace(dtype=torch.float32)
     ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=2, total_steps=4)
     batch = data.SyntheticLM(cfg, 4, 32).next_batch(0)
     out = {}

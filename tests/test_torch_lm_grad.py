@@ -150,8 +150,11 @@ def test_to_reference_inverts_from_reference():
 
 # --- the backward kernels' plain versions -----------------------------------
 
+#: the last two: seamless-m4t's encoder (non-causal, Sq == Sk) and its
+#: cross-attention (511 decoder rows over 512 frames), scaled down
 ATTN = [(2, 6, 2, 37, 37, 12, True), (2, 4, 4, 16, 48, 16, False),
-        (2, 3, 1, 20, 30, 8, True), (1, 4, 1, 9, 9, 8, False)]
+        (2, 3, 1, 20, 30, 8, True), (1, 4, 1, 9, 9, 8, False),
+        (2, 4, 4, 32, 32, 16, False), (2, 4, 4, 31, 32, 16, False)]
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", ATTN)
