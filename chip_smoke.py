@@ -149,7 +149,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``torch.profiler``; each model freed before the next; then the
    attention backward held against ``mha_ref_bwd`` and timed at each new
    shape (zamba2's shared block, seamless's encoder, decoder and
-   cross-attention, internvl2's 1,535 rows at head_dim 128) as in phase 6.
+   cross-attention, internvl2's 1,535 rows at head_dim 128) as in phase 6;
+9. the mesh on the card (``sharding/``, ``launch/mesh``, ``launch/specs``,
+   ``launch/dryrun``), after the families' training: the dry run (``python
+   -m repro_torch.launch.dryrun``, granite-moe-3b-a800m's ``train_4k`` and
+   ``decode_32k`` on both production meshes, each in its own process on
+   the host's CPU, started first) exits 0 and its records' bytes a device
+   and FLOPs are printed; ``launch.mesh.make_debug_mesh()`` is a (1, 1)
+   ``("data", "model")`` mesh over a one-rank ``nccl`` group, and
+   ``make_debug_mesh(data=2)`` is refused with its recipe; granite's
+   train cell at phase 6's shape (``launch.specs.build_cell``): its
+   parameters drawn on the card from seed 0, they, the AdamW state and
+   the batch placed as ``DTensor``s by the cell's placements, the bytes
+   the placement took equal to the dry run's ``argument_bytes`` within
+   512 bytes a leaf; one step of the
+   port's train step on the placed state (in place), its counters
+   zeroed just before and read just after: every attention forward and
+   recompute and every expert GEMM on ``wgmma``, ``dq`` + ``dkdv`` and
+   both gradient products on ``wgmma``, the loss finite; the dry run's
+   FLOPs for the cell beside phase 6's 6 x N_active x tokens, not
+   below it; granite's decode cache at phase 5's size placed by
+   ``cache_specs``, its bytes held the same way; xlstm-350m's parameters
+   and AdamW state saved from the mesh and restored with ``shardings``
+   onto it, every leaf bit for bit, seconds and bytes printed; then
+   ``examples/egpu_benchmarks_torch.py`` and
+   ``examples/fleet_throughput_torch.py`` on the card, each exiting 0.
+   The placements' bytes are the growth of the caching allocator's
+   requested bytes (``memory_stats()["requested_bytes.all.current"]``);
+   the growth of ``memory_allocated``, printed beside, also counts the
+   whole of a cached block that an earlier phase freed and that a
+   request takes without a split (up to 1 MiB more a leaf).  The train
+   step's launches are one more path (``train-mesh``) of the LM kernels'
+   rows in the kernels line.
 
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -165,6 +196,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -2991,6 +3023,347 @@ def train_families(dev, gpu: str) -> dict:
     return {"ref": ref, "runs": runs, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the mesh on the card (sharding/, launch/mesh, specs, dryrun)
+# ---------------------------------------------------------------------------
+
+#: the slack a placed leaf may take beyond its bytes: the caching
+#: allocator's rounding of a block
+ALLOC_ROUND = 512
+#: the elastic round trip's model: its float32 parameters and AdamW state
+#: (granite's would be about 40 GB of files)
+ELASTIC_ARCH = "xlstm-350m"
+#: the dry run's cells, each in a process of its own on both meshes
+DRYRUN_CELLS = (("granite-moe-3b-a800m", "train_4k"),
+                ("granite-moe-3b-a800m", "decode_32k"))
+#: the examples run on the card at their default sizes
+EXAMPLES = ("egpu_benchmarks_torch", "fleet_throughput_torch")
+
+
+def _env(**kw) -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), **kw)
+
+
+def start_dryruns(out: pathlib.Path) -> list:
+    """``python -m repro_torch.launch.dryrun`` for each of
+    :data:`DRYRUN_CELLS` with ``--both-meshes``, each in its own process
+    (its placeholder group is process-wide; no CUDA device is visible to
+    it), started now and read by :func:`finish_dryruns`."""
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--both-meshes", "--out", str(out)]
+        procs.append((arch, shape, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=ROOT, env=_env(CUDA_VISIBLE_DEVICES=""))))
+    return procs
+
+
+def finish_dryruns(procs: list, out: pathlib.Path, gpu: str) -> dict:
+    """Each dry run's exit (0, or the phase fails) and its records."""
+    recs = {}
+    for arch, shape, p in procs:
+        text, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape} exited "
+                                 f"{p.returncode}: {text[-3000:]}")
+        for mesh in ("16x16", "2x16x16"):
+            rec = json.loads((out / f"{arch}__{shape}__{mesh}.json")
+                             .read_text())
+            mem, cost = rec["memory"], rec["cost"]
+            log(f"[mesh-dryrun] {arch} {shape} on {mesh} ({rec['chips']} "
+                f"placeholder ranks, the CPU of the card's host): "
+                f"argument_bytes {mem['argument_bytes']:,} a device, "
+                f"output_bytes {mem['output_bytes']:,}, flops "
+                f"{cost['flops']:.6e} (the whole step), traced in "
+                f"{rec['lower_s']} s; collectives "
+                f"{rec['collectives']} ({gpu})")
+            recs[(shape, mesh)] = rec
+    return recs
+
+
+def _alloc(dev) -> tuple:
+    """(bytes requested of the caching allocator, bytes it allocated: each
+    request rounded up to a block), now."""
+    import torch
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
+            torch.cuda.memory_allocated(dev))
+
+
+def _held_bytes(label: str, dev, before: tuple, want: int, leaves: int,
+                gpu: str) -> None:
+    """The bytes a placement took since ``before`` (:func:`_alloc`)
+    against the dry run's, within 512 bytes a leaf."""
+    req, alloc = (a - b for a, b in zip(_alloc(dev), before))
+    if not 0 <= req - want <= ALLOC_ROUND * leaves:
+        raise AssertionError(f"{label}: placement requested {req} bytes, "
+                             f"the dry run counts {want} ({leaves} leaves)")
+    log(f"[mesh] {label}: the placement requested {req:,} bytes of the "
+        f"caching allocator; the dry run's bytes {want:,}; {req - want} "
+        f"over, at most {ALLOC_ROUND} a leaf x {leaves} leaves; "
+        f"memory_allocated grew {alloc:,} ({alloc - want:,} over: blocks "
+        f"rounded to 512 bytes, and cached blocks taken whole) ({gpu})")
+
+
+def _place(pairs) -> list:
+    """Each (tensor, NamedSharding) placed as a ``DTensor`` over the tensor
+    itself (on a one-rank mesh the shard is the whole tensor: no copy)."""
+    from repro_torch.sharding import partition
+    out = []
+    for t, sh in pairs:
+        d = partition.place(t, sh)
+        if d.to_local().data_ptr() != t.data_ptr():
+            raise AssertionError("a one-rank placement copied its tensor")
+        out.append(d)
+    return out
+
+
+def mesh_train(dev, gpu: str, mesh) -> dict:
+    """granite's train cell at phase 6's shape on the one-rank mesh: the
+    state drawn on the card and placed by the cell's placements, its
+    bytes against the dry run's, one step of the port's step on it (the
+    counters zeroed just before and read just after), the dry run's
+    FLOPs beside phase 6's 6 x N_active x tokens."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs, train
+    from repro_torch.training import data, optimizer as opt_mod
+    t = TRAIN
+    cell = specs.build_cell(t["arch"], "train", mesh,
+                            shape=configs.ShapeSpec("phase6", t["seq"],
+                                                    t["batch"], "train"))
+    cfg = cell.cfg
+    dry = dryrun.measure(cell)
+    want = dry["memory"]["argument_bytes"]
+    leaves = specs.placed_leaves(cell.args, cell.in_shardings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh] before the placement: memory_allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, "
+        f"memory_reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
+        f"(phases 1 to 8's leftovers) ({gpu})")
+    before = _alloc(dev)
+    model = train.build_model(cfg, t["seed"], dev)
+    opt_state = opt_mod.init(dict(model.named_parameters()),
+                             opt_mod.OptConfig(state_dtype=cfg.param_dtype))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             data.SyntheticLM(cfg, t["batch"], t["seq"], seed=t["seed"])
+             .next_batch(0).items()}
+    args = (model, opt_state, batch, None)
+    placed = _place(specs.placed_leaves(args, cell.in_shardings))
+    _held_bytes(f"{cfg.name} train cell ({t['batch']} x {t['seq']}: f32 "
+                "parameters, AdamW m and v, count, tokens)", dev, before,
+                want, len(leaves), gpu)
+    zero_lm_counters()
+    t0 = time.perf_counter()
+    model, opt_state, _, metrics = cell.step_fn(*args)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    routes, bwd = route_counts(), bwd_counts()
+    if not (np.isfinite(loss) and float(metrics["finite"]) == 1.0):
+        raise AssertionError(f"the placed train step's loss is {loss}")
+    # the step updated the placed state in place
+    for d, (x, _) in zip(placed, specs.placed_leaves(
+            (model, opt_state, batch, None), cell.in_shardings)):
+        if d.to_local().data_ptr() != x.data_ptr():
+            raise AssertionError("the step left the placed state")
+    if int(opt_state["count"]) != 1:
+        raise AssertionError("the placed step count is not 1")
+    blocks = cfg.n_layers
+    want_routes = {"flash_attention": {"wgmma": 2 * blocks, "split": 0,
+                                       "simt": 0},
+                   "wavefront_matmul": {"wgmma": 6 * blocks, "small_m": 0,
+                                        "simt": 0}}
+    want_bwd = {"flash_attention": {k: {"wgmma": blocks, "simt": 0}
+                                    for k in ("dq", "dkdv")},
+                "wavefront_matmul": {p: {"wgmma": 3 * blocks, "small_m": 0,
+                                         "simt": 0} for p in ("da", "db")}}
+    if routes != want_routes or bwd != want_bwd:
+        raise AssertionError(f"placed step launches by route {routes}, "
+                             f"backward {bwd}; expected {want_routes}, "
+                             f"{want_bwd}")
+    tokens = t["batch"] * (t["seq"] - 1)
+    n_active, _ = active_params(cfg)
+    six = 6 * n_active * tokens
+    flops = dry["cost"]["flops"]
+    if flops < six:
+        raise AssertionError(f"the dry run counts {flops} FLOPs, below 6 x "
+                             f"N_active x tokens = {six}")
+    log(f"[mesh] {cfg.name} train step on the placed state: loss "
+        f"{loss:.4f}, finite, {step_s:.3f} s (the first step: remat, "
+        f"allocator warm-up); launches forward {routes}, backward {bwd} "
+        f"({gpu})")
+    log(f"[mesh] FLOPs a step: dry run (FlopCounterMode on meta, the plain "
+        f"versions' products: dense attention, every expert slot) "
+        f"{flops:.6e}; phase 6's 6 x N_active x tokens = 6 x {n_active} x "
+        f"{tokens} = {six:.6e}; ratio {flops / six:.4f}; traced in "
+        f"{dry['lower_s']:.2f} s")
+    del model, opt_state, batch, args, placed, metrics
+    return {"routes": routes, "bwd": bwd, "argument_bytes": want,
+            "flops": flops, "six": six, "loss": loss}
+
+
+def mesh_decode_cache(dev, gpu: str, mesh) -> int:
+    """granite's decode cache at phase 5's size placed by ``cache_specs``,
+    its bytes against the dry run's cache argument."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    s = SERVE
+    cell = specs.build_cell(s["arch"], "decode", mesh,
+                            shape=configs.ShapeSpec("phase5", s["max_len"],
+                                                    s["requests"], "decode"))
+    want = specs.argument_bytes(cell, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = _alloc(dev)
+    cache = api.init_cache(cell.cfg, s["requests"], s["max_len"], device=dev)
+    pairs = specs.placed_leaves((cache,), (cell.in_shardings[1],))
+    placed = _place(pairs)
+    _held_bytes(f"{cell.cfg.name} decode cache ({s['requests']} requests x "
+                f"max_len {s['max_len']}, bf16 K and V)", dev, before, want,
+                len(pairs), gpu)
+    del cache, placed
+    return want
+
+
+def mesh_elastic(dev, gpu: str, mesh, tmp: pathlib.Path) -> dict:
+    """xlstm-350m's parameters and AdamW state saved from the card's mesh
+    and restored with ``shardings`` onto it, every leaf bit for bit."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.sharding import partition
+    from repro_torch.training import checkpoint, optimizer as opt_mod
+    cfg = configs.get(ELASTIC_ARCH)
+    model = train.build_model(cfg, 0, dev)
+    params = dict(model.named_parameters())
+    opt_state = opt_mod.init(params, opt_mod.OptConfig(
+        state_dtype=cfg.param_dtype))
+    for m in opt_state["m"].values():     # moments not all zero
+        m.normal_()
+    rules = partition.make_rules(cfg, mesh)
+    specs = api.param_specs(cfg)
+    tree = {"params": model.params(), "opt": opt_state}
+    shardings = {"params": partition.tree_shardings(specs, rules, mesh),
+                 "opt": partition.tree_shardings(
+                     opt_mod.state_specs(specs), rules, mesh)}
+    placed = tree_map(partition.place, tree, shardings)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in partition.leaves(tree))
+    path = tmp / "elastic"
+    t0 = time.perf_counter()
+    checkpoint.save(str(path), 3, placed)
+    save_s = time.perf_counter() - t0
+    files = sum(f.stat().st_size for f in path.rglob("*.npy"))
+    like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), tree)
+    t0 = time.perf_counter()
+    restored, step, _ = checkpoint.restore(str(path), like,
+                                           shardings=shardings)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    got, exp = partition.leaves(restored), partition.leaves(placed)
+    if step != 3 or len(got) != len(exp):
+        raise AssertionError("the elastic restore lost leaves or its step")
+    for g, e in zip(got, exp):
+        g, e = g.to_local(), e.to_local()
+        if g.dtype != e.dtype or g.device != e.device or not bits_equal(
+                g.contiguous(), e.contiguous()):
+            raise AssertionError("an elastic leaf differs after restore")
+    log(f"[mesh] elastic round trip: {cfg.name} parameters and AdamW state "
+        f"({len(got)} leaves, {nbytes:,} bytes on the card, {files:,} bytes "
+        f"of .npy) saved from the (1, 1) mesh in {save_s:.2f} s, restored "
+        f"with shardings onto it in {restore_s:.2f} s; every leaf bit for "
+        f"bit ({gpu})")
+    return {"bytes": nbytes, "files": files, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def run_examples(gpu: str) -> dict:
+    """Each new example on the card at its default size, in a process of
+    its own; each must exit 0."""
+    out = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                                f"{name}.py")],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=ROOT, env=_env())
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{name} exited {r.returncode}: "
+                                 f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+        for line in r.stdout.strip().splitlines():
+            log(f"[mesh-examples] {name}: {line}")
+        log(f"[mesh-examples] {name} exited 0 in {wall:.1f} s ({gpu})")
+        out[name] = wall
+    return out
+
+
+def mesh_phase(dev, gpu: str) -> dict:
+    """Phase 9: the one-card mesh, granite's train cell placed and
+    stepped, its decode cache placed, xlstm's elastic round trip, the
+    dry run (started first, in other processes, on the host's CPU) and
+    the two new examples."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    procs = []
+    try:
+        procs = start_dryruns(tmp / "dryrun")
+        mesh = mesh_mod.make_debug_mesh()
+        if mesh.shape != (1, 1) or mesh.mesh_dim_names != ("data", "model") \
+                or mesh.device_type != "cuda":
+            raise AssertionError(f"make_debug_mesh() gave {mesh}")
+        try:
+            mesh_mod.make_debug_mesh(data=2)
+            raise AssertionError("make_debug_mesh(data=2) on one card")
+        except ValueError as e:
+            if "torchrun --nproc-per-node 2" not in str(e):
+                raise
+            log(f"[mesh] make_debug_mesh(): {mesh}; make_debug_mesh(data=2) "
+                f"refused: {e}")
+        trained = mesh_train(dev, gpu, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache_bytes = mesh_decode_cache(dev, gpu, mesh)
+        elastic = mesh_elastic(dev, gpu, mesh, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        examples = run_examples(gpu)
+        recs = finish_dryruns(procs, tmp / "dryrun", gpu)
+        procs = []
+    finally:
+        for _, _, p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {**trained, "cache_bytes": cache_bytes, "elastic": elastic,
+            "examples": examples, "dryrun": recs}
+
+
+def add_path(row: dict, path: str, routes: dict) -> None:
+    """One more path's launches (by route, or by kernel and route) into a
+    kernels-line row: under ``paths``, in ``launches`` and ``routes``."""
+    n = sum(sum(v.values()) if isinstance(v, dict) else v
+            for v in routes.values())
+    row["paths"][path] = n
+    row["launches"] += n
+    for k, v in routes.items():
+        if isinstance(v, dict):
+            for r, m in v.items():
+                row["routes"][k][r] += m
+        else:
+            row["routes"][k] += v
+
+
 def ptxas_report(logs: dict) -> list:
     """``(kernel, function, registers, spills, static shared bytes)`` for
     each function nvcc's ``-Xptxas -v`` reported."""
@@ -3226,6 +3599,22 @@ def main(argv) -> int:
     bwd["cases"] = fam_train["rows"]
     bwd["max_abs_err"] = max([bwd["max_abs_err"]]
                              + [c["max_abs_err"] for c in bwd["cases"]])
+    del fam, fam_train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    meshed = mesh_phase(dev, gpu)
+    # phase 9's train step is one more path of the LM kernels (its
+    # counters zeroed just before it and read just after)
+    path = f"train-mesh {TRAIN['arch']}"
+    rows = {k["name"]: k for k in kernels}
+    mm, mm_bwd = rows["wavefront_matmul"], rows["wavefront_matmul_bwd"]
+    mm["paths"] = {f"serve {SERVE['arch']}": mm["launches"]}
+    mm_bwd["paths"] = {f"train {TRAIN['arch']}": mm_bwd["launches"]}
+    add_path(mm, path, meshed["routes"]["wavefront_matmul"])
+    add_path(mm_bwd, path, meshed["bwd"]["wavefront_matmul"])
+    add_path(attn, path, meshed["routes"]["flash_attention"])
+    add_path(bwd, path, meshed["bwd"]["flash_attention"])
 
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

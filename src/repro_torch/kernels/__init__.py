@@ -2,7 +2,8 @@
 the reference that the port's path runs.
 
 Layout per kernel: ``<name>/ops.py`` (the public wrapper: the CUDA
-kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor,
+kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor
+(and for a ``meta`` one, which computes nothing: ``build.plain``),
 never a fallback from one to the other; a launch counter),
 ``<name>/ref.py`` (the plain PyTorch version, exact on any device), and
 the CUDA source ``csrc/<name>.cu``.  An eGPU kernel's source holds two

@@ -80,6 +80,17 @@ _SIGNATURES = {
 }
 
 
+#: devices whose tensors a kernel wrapper hands to its plain version: the
+#: CPU computes it; ``meta`` computes nothing (shapes only, as the dry run
+#: traces a step), so no kernel is hidden by it
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version."""
+    return t.device.type in PLAIN_DEVICES
+
+
 def tma_legal(*ts) -> bool:
     """Whether TMA can read each tensor as it is: contiguous, its base on
     16 bytes and its rows a multiple of 16 bytes (the LM kernels' routing

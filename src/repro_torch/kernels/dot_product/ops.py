@@ -1,6 +1,6 @@
 """Public wrappers of the DOT/SUM extension unit: the CUDA kernels for
-CUDA tensors, the plain versions (:mod:`.ref`) for CPU tensors, never a
-fallback from one to the other.  Two routes, one source
+CUDA tensors, the plain versions (:mod:`.ref`) for CPU (and ``meta``)
+tensors, never a fallback from one to the other.  Two routes, one source
 (``csrc/dot_product.cu``), counted in ``dot_product.by_route``:
 
 * ``step`` (:func:`ext_step`, :func:`ext_step_launcher`): the eGPU main
@@ -34,7 +34,7 @@ def dot_product(a: torch.Tensor, b: torch.Tensor,
     tiles = -(-rows // TILE_T)
     if active.shape != a.shape[:-2] + (tiles,):
         raise ValueError(f"active must have shape {a.shape[:-2] + (tiles,)}")
-    if a.device.type == "cpu":
+    if build.plain(a):
         return dot_product_ref(a, b, active)
     if a.device.type != "cuda":
         raise RuntimeError(f"no dot_product kernel for {a.device}")
@@ -70,7 +70,7 @@ def ext_step(regs: torch.Tensor, tr: torch.Tensor, masks: torch.Tensor,
     DOT's, SUM's): thread 0's Rd of each core that runs one gets the sum
     in ``det_sum`` order (:func:`.ref.ext_step_ref`)."""
     egpu_step.check(regs, masks, tr, pred)
-    if regs.device.type == "cpu":
+    if build.plain(regs):
         ext_step_ref(regs, tr, masks, pred, opcodes)
         return
     egpu_step.check_dense(tr, pred)

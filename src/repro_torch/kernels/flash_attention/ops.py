@@ -1,5 +1,6 @@
 """Public wrapper of flash attention with KV-tile skipping: a CUDA kernel
-for a CUDA tensor, the plain version (:mod:`.ref`) for a CPU tensor.
+for a CUDA tensor, the plain version (:mod:`.ref`) for a CPU (or
+``meta``) tensor.
 
 Two hand-written kernels in ``csrc/flash_attention.cu``, three routes;
 :func:`route` picks one by an explicit rule, and a CUDA tensor always
@@ -109,7 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q, k, v, lengths, causal):
-    if q.device.type == "cpu":
+    if build.plain(q):
         return mha_ref(q, k, v, lengths, causal).to(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return run_route(route(q, k, v), q, k, v, lengths, causal)
@@ -151,10 +152,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True):
     """``(dq, dk, dv)`` of :func:`flash_attention` at output gradient
     ``do``, given the forward's output ``o``; each in its input's type.
-    A CPU tensor takes :func:`.ref.mha_ref_bwd`; a CUDA tensor launches
+    A CPU or ``meta`` tensor takes :func:`.ref.mha_ref_bwd`; a CUDA tensor launches
     the two kernels of :func:`route_bwd`'s route or raises."""
     lengths = _check_bwd(q, k, v, o, do, lengths)
-    if q.device.type == "cpu":
+    if build.plain(q):
         return mha_ref_bwd(q, k, v, o, do, lengths, causal)
     q, k, v, o = (t.contiguous() for t in (q, k, v, o))
     do = do.to(q.dtype).contiguous()

@@ -1,6 +1,6 @@
 """Public wrappers of the wavefront ALU: the CUDA kernels for CUDA
-tensors, the plain versions (:mod:`.ref`) for CPU tensors, never a
-fallback from one to the other.  Two routes, one source
+tensors, the plain versions (:mod:`.ref`) for CPU (and ``meta``)
+tensors, never a fallback from one to the other.  Two routes, one source
 (``csrc/wavefront_alu.cu``), counted in ``wavefront_alu.by_route``:
 
 * ``step`` (:func:`fp_step`, :func:`fp_step_launcher`): the eGPU main
@@ -35,7 +35,7 @@ def wavefront_alu(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
     tiles = -(-rows // TILE_T)
     if active.shape != (tiles,):
         raise ValueError(f"active must have shape ({tiles},)")
-    if a.device.type == "cpu":
+    if build.plain(a):
         return wavefront_alu_ref(a, b, init, active, op)
     if a.device.type != "cuda":
         raise RuntimeError(f"no wavefront_alu kernel for {a.device}")
@@ -69,7 +69,7 @@ def fp_step(regs: torch.Tensor, tr: torch.Tensor, masks: torch.Tensor,
     as in :mod:`repro_torch.kernels.egpu_step`): each core whose opcode
     is ``opcodes[k]`` sets ``Rd = wm ? OPS[k](Ra, Rb) : Rd``."""
     egpu_step.check(regs, masks, tr, pred)
-    if regs.device.type == "cpu":
+    if build.plain(regs):
         fp_step_ref(regs, tr, masks, pred, opcodes)
         return
     egpu_step.check_dense(tr, pred)

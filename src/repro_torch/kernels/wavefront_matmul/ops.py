@@ -1,5 +1,5 @@
 """Public wrapper of the masked block matmul: a CUDA kernel for a CUDA
-tensor, the plain version (:mod:`.ref`) for a CPU tensor.
+tensor, the plain version (:mod:`.ref`) for a CPU (or ``meta``) tensor.
 
 Three hand-written kernels compute the function (``csrc/
 wavefront_matmul.cu``); :func:`route` picks one by an explicit rule, and
@@ -92,7 +92,7 @@ def wavefront_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 def _forward(a, b, row_active):
-    if a.device.type == "cpu":
+    if build.plain(a):
         return wavefront_matmul_ref(a, b, row_active)
     a, b = a.contiguous(), b.contiguous()
     return run_route(route(a, b), a, b, row_active)
@@ -116,12 +116,12 @@ class _Matmul(torch.autograd.Function):
 def matmul_bwd(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
                dc: torch.Tensor):
     """``(dA, dB)`` of :func:`wavefront_matmul` at output gradient ``dc``.
-    A CPU tensor takes :func:`.ref.wavefront_matmul_ref_bwd`; a CUDA
+    A CPU or ``meta`` tensor takes :func:`.ref.wavefront_matmul_ref_bwd`; a CUDA
     tensor launches the kernel twice (the module docstring) or raises."""
     _check(a, b, row_active)
     if dc.shape != a.shape[:-1] + b.shape[-1:]:
         raise ValueError(f"dc has shape {tuple(dc.shape)}")
-    if a.device.type == "cpu":
+    if build.plain(a):
         return wavefront_matmul_ref_bwd(a, b, row_active, dc)
     dc = dc.to(a.dtype).contiguous()
     bt = b.transpose(-1, -2).contiguous()

@@ -8,8 +8,10 @@ layout with one dict per layer, and its serving copy); ``prefill`` and
 ``decode`` run on the serving copy under ``no_grad``, ``loss`` on the
 parameters themselves.  Batches are the reference's: ``{"tokens"}``,
 plus ``"frames"`` (B, S_enc, d) for ``encdec`` and ``"patches"`` (B, P,
-D_VIT) for ``vlm``.  The mesh ``param_specs`` / ``cache_specs`` wait
-for ``sharding/``.
+D_VIT) for ``vlm``.  ``param_specs`` and ``cache_specs`` give each
+leaf's logical sharding spec (resolved by ``repro_torch.sharding``) in
+the port's own layout: a part the reference stacks on a leading
+``"layers"`` axis is a list of per-layer specs without that entry.
 """
 from __future__ import annotations
 
@@ -46,6 +48,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
     return transformer.Model(cfg, tree)
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical specs with the structure of the model's :meth:`~.transformer.
+    Model.params`."""
+    _check(cfg)
+    if cfg.family in _INIT:
+        return _INIT[cfg.family].param_specs(cfg)
+    return transformer.param_specs(cfg)
+
+
 def loss(cfg: ModelConfig, model: transformer.Model, batch):
     """The scalar next-token loss over the model's master parameters
     (differentiable where they require a gradient); ``batch["mask"]``,
@@ -76,6 +87,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
         return encdec.init_cache(cfg, batch, max_len, enc_len, device)
     return attention.init_cache(cfg, batch, max_len, cfg.n_layers,
                                 device=device)
+
+
+def cache_specs(cfg: ModelConfig):
+    """Logical specs with the structure of :func:`init_cache`'s cache."""
+    _check(cfg)
+    if cfg.family == "mamba_hybrid":
+        return zamba2.cache_specs(cfg)
+    if cfg.family == "xlstm":
+        return xlstm.cache_specs(cfg)
+    if cfg.family == "encdec":
+        return encdec.cache_specs(cfg)
+    cs = attention.cache_specs(cfg)
+    return attention.KVCache(cs, cs)
 
 
 @torch.no_grad()

@@ -33,6 +33,12 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     }
 
 
+def attn_specs() -> dict:
+    """Logical sharding specs of :func:`attn_params`."""
+    return {"wq": ("fsdp", "heads", "hd"), "wk": ("fsdp", "kv_heads", "hd"),
+            "wv": ("fsdp", "kv_heads", "hd"), "wo": ("heads", "hd", "fsdp")}
+
+
 def _project(x, w):
     """``x @ w`` for x (..., d) and w (d, heads, hd) -> (..., heads, hd)."""
     d, heads, hd = w.shape
@@ -89,6 +95,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
     dtype = dtype or cfg.dtype
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_specs(cfg: ModelConfig) -> tuple:
+    """Logical spec for one cache leaf: (layers, batch, kv_heads, seq, hd).
+
+    The partition rules decide whether the model axis lands on "seq"
+    (always divides) or "cache_heads" (when the KV heads divide)."""
+    return (None, "batch", "cache_heads", "seq", None)
 
 
 def _write_at(cache, new, lengths):

@@ -138,3 +138,24 @@ def softmax_cross_entropy(logits, targets, mask=None):
         return torch.mean(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# Logical sharding axis names (resolved by repro_torch.sharding.partition)
+# --------------------------------------------------------------------------
+# "batch"       — data-parallel batch            -> ("pod","data")
+# "fsdp"        — parameter shard (ZeRO)          -> "data" (when enabled)
+# "heads"       — attention heads                 -> "model" (if divisible)
+# "kv_heads"    — KV heads of the projections     -> "model" (if both divide)
+# "hd"          — attention head_dim              -> replicated
+# "ff"          — MLP hidden                      -> "model"
+# "heads2"      — xLSTM inner->inner outputs      -> replicated
+# "vocab"       — embedding rows                  -> "model" (if divisible)
+# "experts"     — MoE expert dim                  -> "model" (if divisible)
+# "expert_ff"   — per-expert ffn dim              -> "model" (else)
+# "seq"         — sequence (SP / cache)           -> "model"
+# "cache_heads" — KV heads of a cache             -> "model" (when chosen)
+# None          — replicated
+# The reference stacks a part's layers on a leading "layers" axis (always
+# replicated); the port keeps one dict a layer, so its per-layer specs
+# have no such entry.

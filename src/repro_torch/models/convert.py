@@ -156,6 +156,33 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
     return tree
 
 
+def empty_params(cfg: ModelConfig, device="meta") -> dict:
+    """The port's parameter tree (one dict a layer) of uninitialised
+    tensors at ``cfg.param_dtype``, shaped by :func:`_layout`: nothing is
+    drawn, and on the ``meta`` device nothing is allocated."""
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(s) for k, s in spec.items()}
+        return torch.empty(spec[0], dtype=cfg.param_dtype, device=device)
+
+    tree = {}
+    for key, (kind, *rest) in _layout(cfg).items():
+        if kind == STACK:
+            tree[key] = [make(rest[1]) for _ in range(rest[0])]
+        elif kind == LIST:
+            tree[key] = [make(s) for s in rest[0]]
+        else:
+            tree[key] = make(rest[0])
+    return tree
+
+
+def as_model(cfg: ModelConfig, params: dict) -> Model:
+    """``params`` (the port's layout) as a model: a :class:`Transformer`
+    for ``dense`` and ``moe``, else a :class:`Model`."""
+    cls = Transformer if cfg.family in ("dense", "moe") else Model
+    return cls(cfg, params)
+
+
 def _tensor(x, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
         device=device, dtype=dtype)
@@ -181,8 +208,7 @@ def from_reference(cfg: ModelConfig, tree: dict, device=None, *,
             params[key] = [tree_map(leaf, t) for t in tree[key]]
         else:
             params[key] = tree_map(leaf, tree[key])
-    cls = Transformer if cfg.family in ("dense", "moe") else Model
-    return cls(cfg, params)
+    return as_model(cfg, params)
 
 
 def to_reference(tree, cfg: ModelConfig | None = None) -> dict:

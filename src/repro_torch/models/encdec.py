@@ -56,6 +56,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
     }
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    enc = transformer.block_specs(cfg)
+    dec = {"self_attn": attention.attn_specs(),
+           "cross_attn": attention.attn_specs(), "ln_self": (None,),
+           "ln_cross": (None,), "ln_mlp": (None,),
+           "mlp": transformer.MLP_SPECS}
+    return {"embed": ("vocab", "fsdp"),
+            "enc": [enc for _ in range(cfg.enc_layers)],
+            "dec": [dec for _ in range(cfg.dec_layers)],
+            "ln_enc": (None,), "ln_dec": (None,),
+            "unembed": ("fsdp", "vocab")}
+
+
 def _positions(x):
     b, s = x.shape[:2]
     return torch.arange(s, device=x.device).expand(b, s)
@@ -130,6 +143,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
         "cross_v": torch.zeros(cross, dtype=dtype, device=device),
         "enc_len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    cs = attention.cache_specs(cfg)
+    return {"self": attention.KVCache(cs, cs), "cross_k": cs, "cross_v": cs,
+            "enc_len": ("batch",)}
 
 
 def prefill_cross(cfg: ModelConfig, params, enc_out, enc_lengths):

@@ -43,6 +43,13 @@ def ssd_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     }
 
 
+def ssd_specs() -> dict:
+    """Logical sharding specs of :func:`ssd_params`."""
+    return {"w_in": ("fsdp", "ff"), "w_out": ("ff", "fsdp"),
+            "a_log": (None,), "d_skip": (None,), "dt_bias": (None,),
+            "ln": (None,)}
+
+
 def _split_proj(cfg: ModelConfig, proj):
     h, p_dim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     inner = h * p_dim
@@ -127,6 +134,10 @@ def init_ssd_state(cfg: ModelConfig, batch: int, n_layers: int,
                    device=None) -> torch.Tensor:
     return torch.zeros((n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
                         cfg.ssm_head_dim), dtype=torch.float32, device=device)
+
+
+def ssd_state_spec() -> tuple:
+    return (None, "batch", None, None, None)
 
 
 def ssd_decode(cfg: ModelConfig, p, u, state):

@@ -48,6 +48,36 @@ def block_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
+#: a dense block's SwiGLU MLP
+MLP_SPECS = {"w_in": ("fsdp", "ff"), "w_gate": ("fsdp", "ff"),
+             "w_out": ("ff", "fsdp")}
+
+
+def block_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding specs of one block, mirroring :func:`block_params`."""
+    specs = {"attn": attention.attn_specs(),
+             "ln_attn": (None,), "ln_mlp": (None,)}
+    if _is_moe(cfg):
+        specs["moe"] = {"router": ("fsdp", None),
+                        "w_in": ("experts", "fsdp", "expert_ff"),
+                        "w_gate": ("experts", "fsdp", "expert_ff"),
+                        "w_out": ("experts", "expert_ff", "fsdp")}
+    else:
+        specs["mlp"] = MLP_SPECS
+    return specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding specs, mirroring :func:`init_params` (one dict of
+    :func:`block_specs` a layer)."""
+    specs = {"embed": ("vocab", "fsdp"),
+             "blocks": [block_specs(cfg) for _ in range(cfg.n_layers)],
+             "ln_f": (None,)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("fsdp", "vocab")
+    return specs
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` of every leaf of a tree of dicts, lists and named tuples
     (and of the same leaf of each tree of ``rest``)."""

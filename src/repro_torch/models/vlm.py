@@ -31,6 +31,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
     return p
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    s = transformer.param_specs(cfg)
+    s["connector"] = {"w1": (None, "fsdp"), "w2": ("fsdp", None)}
+    return s
+
+
 def _project(cfg: ModelConfig, params, patch_embeds):
     """patch_embeds (B, P, D_VIT) -> (B, P, d) at ``cfg.dtype``."""
     c = params["connector"]

@@ -43,6 +43,14 @@ def mlstm_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
             "w_down": w((inner, d))}
 
 
+def mlstm_specs() -> dict:
+    """Logical sharding specs of :func:`mlstm_params`."""
+    return {"ln": (None,), "w_up": ("fsdp", "ff"), "w_q": ("ff", "heads2"),
+            "w_k": ("ff", "heads2"), "w_v": ("ff", "heads2"),
+            "w_i": ("ff", None), "w_f": ("ff", None),
+            "w_down": ("ff", "fsdp")}
+
+
 def _mlstm_qkvgates(cfg: ModelConfig, p, xm):
     b, s, inner = xm.shape
     h = cfg.n_heads
@@ -131,6 +139,13 @@ def slstm_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
             "w_down": dense_init(gen, (d, d), 0, pd, device)}
 
 
+def slstm_specs() -> dict:
+    """Logical sharding specs of :func:`slstm_params`."""
+    specs = {f"{w}_{g}": ("fsdp", "ff") for w in "wr" for g in GATES}
+    specs.update({"ln": (None,), "w_down": ("ff", "fsdp")})
+    return specs
+
+
 def slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     z = lambda v: torch.full((batch, cfg.d_model), v, dtype=torch.float32,
                              device=device)
@@ -196,6 +211,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
     }
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    blocks = [slstm_specs() if _is_slstm(cfg, i) else mlstm_specs()
+              for i in range(cfg.n_layers)]
+    return {"embed": ("vocab", "fsdp"), "blocks": blocks, "ln_f": (None,),
+            "unembed": ("fsdp", "vocab")}
+
+
 def forward(cfg: ModelConfig, params, tokens):
     """tokens: (B, S).  Returns logits (B, S, V)."""
     x = params["embed"].to(cfg.dtype)[tokens]
@@ -218,6 +240,14 @@ def loss_fn(cfg: ModelConfig, params, tokens, mask=None):
 def init_cache(cfg: ModelConfig, batch: int, device=None) -> list:
     return [slstm_state(cfg, batch, device) if _is_slstm(cfg, i)
             else mlstm_state(cfg, batch, device)
+            for i in range(cfg.n_layers)]
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    return [{k: ("batch", None) for k in ("c", "n", "h", "m")}
+            if _is_slstm(cfg, i) else
+            {"c": ("batch", None, None, None), "n": ("batch", None, None),
+             "m": ("batch", None)}
             for i in range(cfg.n_layers)]
 
 

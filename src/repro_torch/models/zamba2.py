@@ -37,6 +37,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
     }
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    return {"embed": ("vocab", "fsdp"),
+            "mamba": [mamba2.ssd_specs() for _ in range(cfg.n_layers)],
+            "shared_attn": transformer.block_specs(cfg),
+            "ln_f": (None,),
+            "unembed": ("fsdp", "vocab")}
+
+
 def _groups(cfg: ModelConfig):
     period = cfg.shared_attn_period
     bounds = list(range(0, cfg.n_layers, period)) + [cfg.n_layers]
@@ -80,6 +88,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     return {"ssm": mamba2.init_ssd_state(cfg, batch, cfg.n_layers, device),
             "kv": attention.init_cache(cfg, batch, max_len, len(_groups(cfg)),
                                        dtype=dtype, device=device)}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    cs = attention.cache_specs(cfg)
+    return {"ssm": mamba2.ssd_state_spec(), "kv": attention.KVCache(cs, cs)}
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int):

@@ -10,7 +10,11 @@ order: dicts by sorted key, as ``jax.tree`` orders them.  A bfloat16
 leaf is stored as its float32 values (numpy has no bfloat16), its
 manifest dtype says ``bfloat16``, and :func:`restore` casts it back.
 ``save_async`` copies to host memory at once and writes on a thread.
-The reference's ``shardings`` waits for the mesh (``sharding/``).
+
+Elastic, as the reference's: a ``DTensor`` leaf is stored as its whole
+logical array, so a run saved on one mesh restores onto any other
+(:func:`restore`'s ``shardings``), each rank slicing its own shard from
+the array it reads, with no collective.
 """
 from __future__ import annotations
 
@@ -22,13 +26,7 @@ import threading
 import numpy as np
 import torch
 
-
-def _flatten(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _flatten(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _flatten(v)]
-    return [tree]
+from ..sharding import partition
 
 
 def _unflatten(like, leaves):
@@ -43,11 +41,18 @@ def _unflatten(like, leaves):
     return build(like)
 
 
+def _full(leaf):
+    """A ``DTensor``'s whole logical array (a collective: every rank of
+    its mesh takes part), any other leaf itself."""
+    full = getattr(leaf, "full_tensor", None)
+    return leaf if full is None else full()
+
+
 def _host(leaf):
     """(a host copy of ``leaf`` as stored, its manifest dtype); a copy, so
     that training may go on updating the leaf in place."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = _full(leaf.detach())
         if t.dtype == torch.bfloat16:
             return t.float().cpu().numpy(), "bfloat16"
         arr = t.to("cpu", copy=True).numpy()
@@ -57,15 +62,28 @@ def _host(leaf):
 
 
 def save(path: str, step: int, tree, extra: dict | None = None) -> str:
-    """Blocking save.  Returns the final checkpoint directory."""
-    return _save_host(path, step, [_host(leaf) for leaf in _flatten(tree)],
-                      extra)
+    """Blocking save.  Returns the final checkpoint directory.  A tree
+    with ``DTensor`` leaves is saved by every rank of their mesh together
+    (each leaf is gathered whole): rank 0 writes, and every rank returns
+    once the files are in place."""
+    leaves = partition.leaves(tree)
+    sharded = any(hasattr(leaf, "full_tensor") for leaf in leaves)
+    if sharded and torch.distributed.get_rank() != 0:
+        for leaf in leaves:
+            _full(leaf.detach())
+        final = f"{path}/step_{step:08d}"
+    else:
+        final = _save_host(path, step, [_host(leaf) for leaf in leaves],
+                           extra)
+    if sharded:
+        torch.distributed.barrier()
+    return final
 
 
 def save_async(path: str, step: int, tree, extra: dict | None = None
                ) -> threading.Thread:
     """Device->host snapshot now; file I/O on a background thread."""
-    host = [_host(leaf) for leaf in _flatten(tree)]
+    host = [_host(leaf) for leaf in partition.leaves(tree)]
     t = threading.Thread(target=_save_host, args=(path, step, host, extra),
                          daemon=True)
     t.start()
@@ -107,10 +125,19 @@ def latest_step(path: str) -> int | None:
     return int(name.split("_")[-1])
 
 
-def restore(path: str, like_tree, step: int | None = None):
+def restore(path: str, like_tree, step: int | None = None, shardings=None):
     """The checkpoint at ``step`` (default: the latest) as a tree like
     ``like_tree``: each tensor leaf at its like's dtype and device, each
-    other leaf a numpy array.  Returns ``(tree, step, extra)``."""
+    other leaf a numpy array.  Returns ``(tree, step, extra)``.
+
+    ``shardings`` (optional; a tree of :class:`~repro_torch.sharding.
+    partition.NamedSharding` of ``like_tree``'s structure, ``None`` for a
+    leaf left unplaced) re-places leaves, the elastic path: each becomes
+    a ``DTensor`` on its sharding's mesh, this rank's shard sliced from
+    the whole array, at the file's dtype (the manifest's, bfloat16
+    included), where an unplaced leaf takes its like's dtype, as the
+    reference's ``restore`` places the stored array as it is and casts
+    only the other."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -118,16 +145,33 @@ def restore(path: str, like_tree, step: int | None = None):
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    leaves = _flatten(like_tree)
+    leaves = partition.leaves(like_tree)
     if len(leaves) != len(manifest["leaves"]):
         raise ValueError("checkpoint/model structure mismatch")
+    shard_leaves = ([None] * len(leaves) if shardings is None else
+                    partition.leaves(shardings, lambda x: isinstance(
+                        x, partition.NamedSharding)))
+    if len(shard_leaves) != len(leaves):
+        raise ValueError("shardings/model structure mismatch")
     out = []
-    for i, (like, meta) in enumerate(zip(leaves, manifest["leaves"])):
-        arr = np.load(os.path.join(d, meta["file"]))
+    for i, (like, meta, sh) in enumerate(zip(leaves, manifest["leaves"],
+                                             shard_leaves)):
+        # a placed leaf reads only this rank's shard of the file
+        arr = np.load(os.path.join(d, meta["file"]),
+                      mmap_mode=None if sh is None else "r")
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(
                 f"leaf {i}: checkpoint shape {arr.shape} != {like.shape}")
-        if isinstance(like, torch.Tensor):
+        if sh is not None:
+            local = np.array(arr[partition.local_slices(arr.shape, sh)])
+            dev = torch.device(sh.mesh.device_type)
+            if dev.type == "cuda":
+                dev = torch.device("cuda", torch.cuda.current_device())
+            out.append(partition.from_local(
+                torch.from_numpy(local).to(device=dev,
+                                           dtype=getattr(torch, meta["dtype"])),
+                sh, arr.shape))
+        elif isinstance(like, torch.Tensor):
             out.append(torch.from_numpy(arr).to(device=like.device,
                                                 dtype=like.dtype))
         else:

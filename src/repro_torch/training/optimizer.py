@@ -15,7 +15,8 @@ axis, so each of them is at least two-dimensional and decays, the norm
 scales included; the port keeps one tensor a layer, so a leaf under a
 stacked part decays whatever its dimensions (:func:`decays`), and one
 under a list of layers (xlstm's ``blocks``) only as a matrix.
-``state_specs`` waits for ``sharding/``.
+:func:`state_specs` gives the state's logical sharding specs, leaf by
+named leaf.
 """
 from __future__ import annotations
 
@@ -49,6 +50,27 @@ def init(params: dict, cfg: OptConfig) -> dict:
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _named(tree, prefix: str = ""):
+    """(dotted name, leaf) of a tree of dicts and lists, named as
+    ``nn.Module.named_parameters`` names a model's parameters."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def state_specs(param_specs) -> dict:
+    """Optimizer-state logical specs mirror the parameter specs: ``m`` and
+    ``v`` hold each parameter's spec under its name in :func:`init`'s
+    state, and ``count`` is replicated."""
+    named = dict(_named(param_specs))
+    return {"m": named, "v": dict(named), "count": ()}
 
 
 def schedule(cfg: OptConfig, count: torch.Tensor) -> torch.Tensor:

@@ -437,6 +437,40 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
                               torch.ones(1, device="cpu"))
 
 
+def test_lm_kernels_meta_route_beside_cuda(dev):
+    """A ``meta`` tensor (the dry run's trace) takes each LM kernel's plain
+    version, forward and backward, and launches nothing; a CUDA tensor
+    that no route takes still raises."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    counts = lambda: (mops.wavefront_matmul.launches,
+                      mops.wavefront_matmul.backward_launches,
+                      fops.flash_attention.launches,
+                      fops.flash_attention.backward_launches)
+    before = counts()
+    bf = torch.bfloat16
+    q = torch.empty((8, 24, 512, 64), dtype=bf, device="meta",
+                    requires_grad=True)
+    k = torch.empty((8, 8, 512, 64), dtype=bf, device="meta",
+                    requires_grad=True)
+    o = fops.flash_attention(q, k, k)
+    o.sum().backward()
+    a = torch.empty((40, 820, 1536), dtype=bf, device="meta",
+                    requires_grad=True)
+    w = torch.empty((40, 1536, 512), dtype=bf, device="meta",
+                    requires_grad=True)
+    c = mops.wavefront_matmul(a, w, torch.ones((40, 7), dtype=torch.int32,
+                                               device="meta"))
+    c.sum().backward()
+    assert o.device.type == c.device.type == "meta"
+    assert q.grad.shape == q.shape and w.grad.shape == w.shape
+    assert counts() == before
+    x = torch.zeros((1, 1, 4, 160), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_attention(x, x, x)
+    assert counts() == before
+
+
 @pytest.mark.parametrize("mode", ["expert_choice", "token_dense"])
 def test_moe_and_attention_on_cuda_equal_cpu(dev, mode):
     """The modules on the card (kernels) against the port's CPU run

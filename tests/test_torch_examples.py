@@ -1,8 +1,12 @@
 """The port's examples run on the CPU at their smallest size
 (``--device cpu``): ``examples/quickstart_torch.py`` (an eGPU program
 held against numpy, then one LM training step),
-``examples/train_lm_torch.py`` (a few steps with checkpoints) and
-``examples/serve_lm_torch.py`` (qwen3-moe's smoke serve)."""
+``examples/train_lm_torch.py`` (a few steps with checkpoints),
+``examples/serve_lm_torch.py`` (qwen3-moe's smoke serve),
+``examples/egpu_benchmarks_torch.py`` (the paper's five benchmarks and
+the dynamic-scaling ablation, each against its numpy oracle) and
+``examples/fleet_throughput_torch.py`` (16 jobs through a ``Fleet``,
+spot-checked against ``run_program``)."""
 import importlib.util
 import pathlib
 
@@ -40,9 +44,26 @@ def test_serve_lm_torch_on_cpu(capsys):
     assert "prefill: 8 x 16" in out and "useful tokens/s" in out
 
 
+def test_egpu_benchmarks_torch_on_cpu(capsys):
+    out = _load("egpu_benchmarks_torch").main(["--device", "cpu"])
+    assert all(r.correct and r.hazard_violations == 0 for r in out.values())
+    assert out["dynamic"].cycles < out["predicated"].cycles
+    assert "x win (cpu)" in capsys.readouterr().out
+
+
+def test_fleet_throughput_torch_on_cpu(capsys):
+    results = _load("fleet_throughput_torch").main(["--device", "cpu",
+                                                    "--jobs", "16"])
+    assert len(results) == 16
+    assert all(r.hazard_violations == 0 for r in results.values())
+    out = capsys.readouterr().out
+    assert "16 jobs over 8 distinct programs" in out and "speedup" in out
+
+
 def test_examples_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for name in ("quickstart_torch", "train_lm_torch", "serve_lm_torch"):
+    for name in ("quickstart_torch", "train_lm_torch", "serve_lm_torch",
+                 "egpu_benchmarks_torch", "fleet_throughput_torch"):
         with pytest.raises(RuntimeError, match="--device cpu"):
             _load(name).main([])

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
-loads neither ``jax`` nor anything of the JAX package ``repro``, and no
-source of the port (nor ``chip_smoke.py``, nor the port's examples
-``examples/*_torch.py``) imports them."""
+loads neither ``jax`` nor anything of the JAX package ``repro`` and
+starts no process group, and no source of the port (nor
+``chip_smoke.py``, nor the port's examples ``examples/*_torch.py``)
+imports them."""
 import os
 import pathlib
 import re
@@ -35,7 +36,9 @@ def test_import_loads_no_jax_and_no_reference():
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
-            "print(len(sys.modules)); assert not bad, bad\n")
+            "print(len(sys.modules)); assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'a process group at import'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
