@@ -153,26 +153,33 @@ Phases, in order; any failure exits non-zero and prints no result:
 9. the mesh on the card (``sharding/``, ``launch/mesh``, ``launch/specs``,
    ``launch/dryrun``), after the families' training: the dry run (``python
    -m repro_torch.launch.dryrun``, granite-moe-3b-a800m's ``train_4k`` and
-   ``decode_32k`` on both production meshes, each in its own process on
-   the host's CPU, started first) exits 0 and its records' bytes a device
-   and FLOPs are printed; ``launch.mesh.make_debug_mesh()`` is a (1, 1)
-   ``("data", "model")`` mesh over a one-rank ``nccl`` group, and
-   ``make_debug_mesh(data=2)`` is refused with its recipe; granite's
-   train cell at phase 6's shape (``launch.specs.build_cell``): its
-   parameters drawn on the card from seed 0, they, the AdamW state and
-   the batch placed as ``DTensor``s by the cell's placements, the bytes
-   the placement took equal to the dry run's ``argument_bytes`` within
-   512 bytes a leaf; one step of the
-   port's train step on the placed state (in place), its counters
+   ``decode_32k`` on both production meshes, and phase 6's train cell on
+   a (1, 1) mesh, each in its own process on the host's CPU, started
+   first: the step as a ``DTensor`` program on rank 0's ``meta`` shards)
+   exits 0 and its records' bytes a device, temp_bytes, one device's
+   FLOPs and collective bytes by kind are printed;
+   ``launch.mesh.make_debug_mesh()`` is a (1, 1) ``("data", "model")``
+   mesh over a one-rank ``nccl`` group, and ``make_debug_mesh(data=2)``
+   is refused with its recipe; granite's train cell at phase 6's shape
+   (``launch.specs.build_cell``): the unpartitioned step from seed 0
+   first, then the parameters drawn again on the card from seed 0, they,
+   the AdamW state and the batch placed as ``DTensor``s over themselves
+   by the cell's placements (``specs.distribute``), the bytes the
+   placement took equal to the dry run's ``argument_bytes`` within 512
+   bytes a leaf; one step of the partitioned program
+   (``specs.run_step``) on the placed state (in place), its counters
    zeroed just before and read just after: every attention forward and
    recompute and every expert GEMM on ``wgmma``, ``dq`` + ``dkdv`` and
-   both gradient products on ``wgmma``, the loss finite; the dry run's
-   FLOPs for the cell beside phase 6's 6 x N_active x tokens, not
-   below it; granite's decode cache at phase 5's size placed by
-   ``cache_specs``, its bytes held the same way; xlstm-350m's parameters
-   and AdamW state saved from the mesh and restored with ``shardings``
-   onto it, every leaf bit for bit, seconds and bytes printed; then
-   ``examples/egpu_benchmarks_torch.py`` and
+   both gradient products on ``wgmma``, the loss and gradient norm bit
+   for bit the unpartitioned step's; the growth of
+   ``max_memory_allocated`` over the draw, placement and step against
+   the (1, 1) dry run's ``argument_bytes + temp_bytes`` within
+   ``PEAK_BOUND``; that dry run's FLOPs beside phase 6's 6 x N_active x
+   tokens, not below it; granite's decode cache at phase 5's size placed
+   by ``cache_specs``, its bytes held the same way; xlstm-350m's
+   parameters and AdamW state saved from the mesh and restored with
+   ``shardings`` onto it, every leaf bit for bit, seconds and bytes
+   printed; then ``examples/egpu_benchmarks_torch.py`` and
    ``examples/fleet_throughput_torch.py`` on the card, each exiting 0.
    The placements' bytes are the growth of the caching allocator's
    requested bytes (``memory_stats()["requested_bytes.all.current"]``);
@@ -3036,6 +3043,13 @@ ELASTIC_ARCH = "xlstm-350m"
 #: the dry run's cells, each in a process of its own on both meshes
 DRYRUN_CELLS = (("granite-moe-3b-a800m", "train_4k"),
                 ("granite-moe-3b-a800m", "decode_32k"))
+#: the dry run of phase 6's train cell on the card's (1, 1) mesh, whose
+#: arguments plus temp_bytes predict the partitioned step's peak
+PREDICT_ARGS = ("--mesh", "1x1", "--batch", str(TRAIN["batch"]), "--seq",
+                str(TRAIN["seq"]))
+#: the bound of the card's peak against that prediction, |peak /
+#: predicted - 1| (PERF.md says how it was set)
+PEAK_BOUND = 0.05
 #: the examples run on the card at their default sizes
 EXAMPLES = ("egpu_benchmarks_torch", "fleet_throughput_torch")
 
@@ -3046,38 +3060,62 @@ def _env(**kw) -> dict:
 
 def start_dryruns(out: pathlib.Path) -> list:
     """``python -m repro_torch.launch.dryrun`` for each of
-    :data:`DRYRUN_CELLS` with ``--both-meshes``, each in its own process
-    (its placeholder group is process-wide; no CUDA device is visible to
-    it), started now and read by :func:`finish_dryruns`."""
+    :data:`DRYRUN_CELLS` with ``--both-meshes``, and for phase 6's train
+    cell on a (1, 1) mesh (:data:`PREDICT_ARGS`, the prediction of
+    :func:`mesh_train`'s peak), each in its own process (its placeholder
+    group is process-wide; no CUDA device is visible to it), started now
+    and read by :func:`finish_dryruns` and :func:`read_prediction`."""
     procs = []
-    for arch, shape in DRYRUN_CELLS:
+    runs = [(arch, shape, ["--both-meshes"]) for arch, shape in DRYRUN_CELLS]
+    runs.append((TRAIN["arch"], "train_4k", list(PREDICT_ARGS)))
+    for arch, shape, extra in runs:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--both-meshes", "--out", str(out)]
+               arch, "--shape", shape, *extra, "--out", str(out)]
         procs.append((arch, shape, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             cwd=ROOT, env=_env(CUDA_VISIBLE_DEVICES=""))))
     return procs
 
 
+def _wait(arch: str, shape: str, p) -> None:
+    text, _ = p.communicate(timeout=900)
+    if p.returncode != 0:
+        raise AssertionError(f"dryrun {arch} {shape} exited "
+                             f"{p.returncode}: {text[-3000:]}")
+
+
+def read_prediction(procs: list, out: pathlib.Path) -> dict:
+    """The (1, 1) record of phase 6's train cell (the last of
+    :func:`start_dryruns`' processes)."""
+    arch, shape, p = procs[-1]
+    _wait(arch, shape, p)
+    return json.loads((out / f"{arch}__{shape}__1x1.json").read_text())
+
+
 def finish_dryruns(procs: list, out: pathlib.Path, gpu: str) -> dict:
-    """Each dry run's exit (0, or the phase fails) and its records."""
+    """Each production dry run's exit (0, or the phase fails) and its
+    records: one device's bytes, FLOPs and collective bytes by kind."""
     recs = {}
-    for arch, shape, p in procs:
-        text, _ = p.communicate(timeout=600)
-        if p.returncode != 0:
-            raise AssertionError(f"dryrun {arch} {shape} exited "
-                                 f"{p.returncode}: {text[-3000:]}")
+    for arch, shape, p in procs[:len(DRYRUN_CELLS)]:
+        _wait(arch, shape, p)
         for mesh in ("16x16", "2x16x16"):
             rec = json.loads((out / f"{arch}__{shape}__{mesh}.json")
                              .read_text())
-            mem, cost = rec["memory"], rec["cost"]
+            mem, cost, coll = rec["memory"], rec["cost"], rec["collectives"]
+            if "error" in coll or set(coll) != {"bytes", "count",
+                                                "total_bytes"}:
+                raise AssertionError(f"dryrun {arch} {shape} {mesh}: "
+                                     f"collectives {coll}")
+            kinds = ", ".join(f"{k} {b:,} B in {coll['count'][k]}"
+                              for k, b in coll["bytes"].items())
             log(f"[mesh-dryrun] {arch} {shape} on {mesh} ({rec['chips']} "
-                f"placeholder ranks, the CPU of the card's host): "
+                f"placeholder ranks, the CPU of the card's host; the step "
+                f"as a DTensor program on rank 0's meta shards): "
                 f"argument_bytes {mem['argument_bytes']:,} a device, "
-                f"output_bytes {mem['output_bytes']:,}, flops "
-                f"{cost['flops']:.6e} (the whole step), traced in "
-                f"{rec['lower_s']} s; collectives "
-                f"{rec['collectives']} ({gpu})")
+                f"output_bytes {mem['output_bytes']:,}, temp_bytes "
+                f"{mem['temp_bytes']:,}, flops {cost['flops']:.6e} (one "
+                f"device's), traced in {rec['lower_s']} s; collectives by "
+                f"kind: {kinds}; total {coll['total_bytes']:,} B ({gpu})")
             recs[(shape, mesh)] = rec
     return recs
 
@@ -3119,24 +3157,53 @@ def _place(pairs) -> list:
     return out
 
 
-def mesh_train(dev, gpu: str, mesh) -> dict:
-    """granite's train cell at phase 6's shape on the one-rank mesh: the
-    state drawn on the card and placed by the cell's placements, its
-    bytes against the dry run's, one step of the port's step on it (the
-    counters zeroed just before and read just after), the dry run's
-    FLOPs beside phase 6's 6 x N_active x tokens."""
+def _whole(t):
+    """A ``DTensor`` gathered whole (on one rank: its local tensor); a
+    plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_train(dev, gpu: str, mesh, procs: list, out: pathlib.Path) -> dict:
+    """granite's train cell at phase 6's shape on the one-rank mesh as the
+    partitioned program: the unpartitioned step from the seed first, then
+    the state drawn again from the seed, placed as ``DTensor``s over
+    itself (its bytes against the dry run's), and one step of
+    ``specs.run_step`` on it (the counters zeroed just before and read just
+    after): every kernel launch by route, the loss and gradient norm bit
+    for bit the unpartitioned step's, the peak against the dry run's
+    prediction (its arguments plus temp_bytes, :data:`PEAK_BOUND`), and
+    its FLOPs beside phase 6's 6 x N_active x tokens."""
     import torch
     from repro_torch import configs
-    from repro_torch.launch import dryrun, specs, train
+    from repro_torch.launch import specs, train
     from repro_torch.training import data, optimizer as opt_mod
     t = TRAIN
     cell = specs.build_cell(t["arch"], "train", mesh,
                             shape=configs.ShapeSpec("phase6", t["seq"],
                                                     t["batch"], "train"))
     cfg = cell.cfg
-    dry = dryrun.measure(cell)
-    want = dry["memory"]["argument_bytes"]
+    want = specs.argument_bytes(cell)
     leaves = specs.placed_leaves(cell.args, cell.in_shardings)
+
+    def state():
+        model = train.build_model(cfg, t["seed"], dev)
+        opt_state = opt_mod.init(dict(model.named_parameters()),
+                                 opt_mod.OptConfig(
+                                     state_dtype=cfg.param_dtype))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 data.SyntheticLM(cfg, t["batch"], t["seq"], seed=t["seed"])
+                 .next_batch(0).items()}
+        return (model, opt_state, batch, None)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = state()
+    t0 = time.perf_counter()
+    _, _, _, metrics = cell.step_fn(*args)
+    plain = {k: metrics[k].detach().clone() for k in ("loss", "grad_norm")}
+    plain_s = time.perf_counter() - t0
+    del args, metrics
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[mesh] before the placement: memory_allocated "
@@ -3144,31 +3211,40 @@ def mesh_train(dev, gpu: str, mesh) -> dict:
         f"memory_reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
         f"(phases 1 to 8's leftovers) ({gpu})")
     before = _alloc(dev)
-    model = train.build_model(cfg, t["seed"], dev)
-    opt_state = opt_mod.init(dict(model.named_parameters()),
-                             opt_mod.OptConfig(state_dtype=cfg.param_dtype))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in
-             data.SyntheticLM(cfg, t["batch"], t["seq"], seed=t["seed"])
-             .next_batch(0).items()}
-    args = (model, opt_state, batch, None)
-    placed = _place(specs.placed_leaves(args, cell.in_shardings))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    args = state()
+    dargs = specs.distribute(cell, args=args, local=specs.view_local)
+    placed = specs.arg_tensors(dargs)
+    for d, (x, _) in zip(placed, specs.placed_leaves(args,
+                                                     cell.in_shardings)):
+        if d.to_local().data_ptr() != x.data_ptr():
+            raise AssertionError("a one-rank placement copied its tensor")
     _held_bytes(f"{cfg.name} train cell ({t['batch']} x {t['seq']}: f32 "
                 "parameters, AdamW m and v, count, tokens)", dev, before,
                 want, len(leaves), gpu)
     zero_lm_counters()
     t0 = time.perf_counter()
-    model, opt_state, _, metrics = cell.step_fn(*args)
-    loss = float(metrics["loss"])
+    _, opt_state, _, metrics = specs.run_step(cell, dargs)
+    got = {k: _whole(metrics[k]).detach() for k in ("loss", "grad_norm")}
+    torch.cuda.synchronize(dev)
     step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
     routes, bwd = route_counts(), bwd_counts()
-    if not (np.isfinite(loss) and float(metrics["finite"]) == 1.0):
-        raise AssertionError(f"the placed train step's loss is {loss}")
+    loss = float(got["loss"])
+    if not (np.isfinite(loss) and float(_whole(metrics["finite"])) == 1.0):
+        raise AssertionError(f"the partitioned train step's loss is {loss}")
+    for k in ("loss", "grad_norm"):
+        if not bits_equal(got[k].reshape(1), plain[k].reshape(1)):
+            raise AssertionError(f"the partitioned step's {k} "
+                                 f"{float(got[k])!r} is not the "
+                                 f"unpartitioned step's {float(plain[k])!r}")
     # the step updated the placed state in place
-    for d, (x, _) in zip(placed, specs.placed_leaves(
-            (model, opt_state, batch, None), cell.in_shardings)):
+    for d, (x, _) in zip(placed, specs.placed_leaves(args,
+                                                     cell.in_shardings)):
         if d.to_local().data_ptr() != x.data_ptr():
             raise AssertionError("the step left the placed state")
-    if int(opt_state["count"]) != 1:
+    if int(_whole(opt_state["count"])) != 1:
         raise AssertionError("the placed step count is not 1")
     blocks = cfg.n_layers
     want_routes = {"flash_attention": {"wgmma": 2 * blocks, "split": 0,
@@ -3180,28 +3256,46 @@ def mesh_train(dev, gpu: str, mesh) -> dict:
                 "wavefront_matmul": {p: {"wgmma": 3 * blocks, "small_m": 0,
                                          "simt": 0} for p in ("da", "db")}}
     if routes != want_routes or bwd != want_bwd:
-        raise AssertionError(f"placed step launches by route {routes}, "
+        raise AssertionError(f"partitioned step launches by route {routes}, "
                              f"backward {bwd}; expected {want_routes}, "
                              f"{want_bwd}")
+    pred = read_prediction(procs, out)
+    pmem = pred["memory"]
+    if pmem["argument_bytes"] != want:
+        raise AssertionError(f"the (1, 1) dry run's argument_bytes "
+                             f"{pmem['argument_bytes']} are not {want}")
+    predicted = pmem["argument_bytes"] + pmem["temp_bytes"]
+    off = peak / predicted - 1
+    log(f"[mesh] {cfg.name} partitioned train step (DTensor over the "
+        f"one-rank nccl mesh): loss {loss:.6f}, grad norm "
+        f"{float(got['grad_norm']):.6f}, both bit for bit the unpartitioned "
+        f"step's from seed {t['seed']} ({plain_s:.3f} s; partitioned "
+        f"{step_s:.3f} s, a first DTensor step); launches forward {routes}, "
+        f"backward {bwd} ({gpu})")
+    log(f"[mesh] peak: max_memory_allocated grew {peak:,} bytes over the "
+        f"state's draw, placement and step; the dry run predicts "
+        f"argument_bytes {pmem['argument_bytes']:,} + temp_bytes "
+        f"{pmem['temp_bytes']:,} = {predicted:,}; {off:+.4%} (bound "
+        f"{PEAK_BOUND:.0%}) ({gpu})")
+    if abs(off) > PEAK_BOUND:
+        raise AssertionError(f"peak {peak} is {off:+.2%} off the dry run's "
+                             f"{predicted}")
     tokens = t["batch"] * (t["seq"] - 1)
     n_active, _ = active_params(cfg)
     six = 6 * n_active * tokens
-    flops = dry["cost"]["flops"]
+    flops = pred["cost"]["flops"]
     if flops < six:
         raise AssertionError(f"the dry run counts {flops} FLOPs, below 6 x "
                              f"N_active x tokens = {six}")
-    log(f"[mesh] {cfg.name} train step on the placed state: loss "
-        f"{loss:.4f}, finite, {step_s:.3f} s (the first step: remat, "
-        f"allocator warm-up); launches forward {routes}, backward {bwd} "
-        f"({gpu})")
-    log(f"[mesh] FLOPs a step: dry run (FlopCounterMode on meta, the plain "
-        f"versions' products: dense attention, every expert slot) "
-        f"{flops:.6e}; phase 6's 6 x N_active x tokens = 6 x {n_active} x "
-        f"{tokens} = {six:.6e}; ratio {flops / six:.4f}; traced in "
-        f"{dry['lower_s']:.2f} s")
-    del model, opt_state, batch, args, placed, metrics
+    log(f"[mesh] FLOPs a step: dry run on the (1, 1) mesh (one rank's "
+        f"local products: dense attention, every expert slot) {flops:.6e}; "
+        f"phase 6's 6 x N_active x tokens = 6 x {n_active} x {tokens} = "
+        f"{six:.6e}; ratio {flops / six:.4f}; traced in "
+        f"{pred['lower_s']:.1f} s")
+    del args, dargs, placed, metrics, opt_state
     return {"routes": routes, "bwd": bwd, "argument_bytes": want,
-            "flops": flops, "six": six, "loss": loss}
+            "flops": flops, "six": six, "loss": loss, "peak": peak,
+            "predicted": predicted, "temp_bytes": pmem["temp_bytes"]}
 
 
 def mesh_decode_cache(dev, gpu: str, mesh) -> int:
@@ -3330,7 +3424,7 @@ def mesh_phase(dev, gpu: str) -> dict:
                 raise
             log(f"[mesh] make_debug_mesh(): {mesh}; make_debug_mesh(data=2) "
                 f"refused: {e}")
-        trained = mesh_train(dev, gpu, mesh)
+        trained = mesh_train(dev, gpu, mesh, procs, tmp / "dryrun")
         gc.collect()
         torch.cuda.empty_cache()
         cache_bytes = mesh_decode_cache(dev, gpu, mesh)

@@ -28,11 +28,21 @@ explicit rule (``run_bwd_route`` names one):
 * ``"simt"``: everything else (float32, other head dims, operands TMA
   cannot read): the CUDA cores in float32.
 
-:func:`flash_attention` goes through its ``torch.autograd.Function``
+:func:`flash_attention` and its gradient are the operators
+``torch.ops.repro_torch.flash_attention`` and ``.flash_attention_bwd``
+(``torch.library.custom_op``), each with a fake implementation that
+allocates what the CUDA route allocates (the outputs; the backward's
+log-sum-exp and Delta and the ``split`` route's partials are the
+workspace :func:`workspace_bytes` names), a FLOP formula
+(``torch.utils.flop_counter``: the products of the plain versions'
+matmuls), and, once :func:`register_dtensor_rules` has run, a
+``DTensor`` sharding rule (q, k, v and the output alike on batch or
+heads, ``lengths`` on batch or replicated).  The backward is recorded
 only when a gradient is wanted (grad mode on and an operand that
 requires one), so a run under ``no_grad`` (the serve) launches what it
 launched before.  On a CPU tensor the backward is :func:`.ref.
-mha_ref_bwd`.
+mha_ref_bwd`; on a ``meta`` tensor each operator takes its fake
+implementation and launches nothing.
 """
 from __future__ import annotations
 
@@ -103,34 +113,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Differentiable in q, k and v (:func:`attention_bwd`).
     """
     lengths = _check(q, k, v, lengths)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _Attention.apply(q, k, v, lengths, causal)
-    return _forward(q, k, v, lengths, causal)
+    return _attention_op(q, k, v, lengths, causal)
 
 
-def _forward(q, k, v, lengths, causal):
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor, causal: bool) -> torch.Tensor:
     if build.plain(q):
         return mha_ref(q, k, v, lengths, causal).to(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return run_route(route(q, k, v), q, k, v, lengths, causal)
 
 
-class _Attention(torch.autograd.Function):
-    """The forward kernel, and :func:`attention_bwd` as its gradient."""
+@_attention_op.register_fake
+def _(q, k, v, lengths, causal):
+    return q.new_empty(q.shape)
 
-    @staticmethod
-    def forward(ctx, q, k, v, lengths, causal):
-        out = _forward(q, k, v, lengths, causal)
-        ctx.save_for_backward(q, k, v, out, lengths)
-        ctx.causal = causal
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lengths = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, out, do, lengths, ctx.causal)
-        return dq, dk, dv, None, None
+def _setup(ctx, inputs, output):
+    q, k, v, lengths, causal = inputs
+    ctx.save_for_backward(q, k, v, output, lengths)
+    ctx.causal = causal
+
+
+def _backward(ctx, do):
+    q, k, v, out, lengths = ctx.saved_tensors
+    dq, dk, dv = _attention_bwd_op(q, k, v, out, do, lengths, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+_attention_op.register_autograd(_backward, setup_context=_setup)
 
 
 def route_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,12 +167,103 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CPU or ``meta`` tensor takes :func:`.ref.mha_ref_bwd`; a CUDA tensor launches
     the two kernels of :func:`route_bwd`'s route or raises."""
     lengths = _check_bwd(q, k, v, o, do, lengths)
+    return _attention_bwd_op(q, k, v, o, do, lengths, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor,
+                      lengths: torch.Tensor, causal: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if build.plain(q):
         return mha_ref_bwd(q, k, v, o, do, lengths, causal)
     q, k, v, o = (t.contiguous() for t in (q, k, v, o))
     do = do.to(q.dtype).contiguous()
     return run_bwd_route(route_bwd(q, k, v, o, do), q, k, v, o, do, lengths,
                          causal)
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, o, do, lengths, causal):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def workspace_bytes(op, q: torch.Tensor, k: torch.Tensor) -> int:
+    """Bytes the CUDA route of ``op`` (the forward or backward operator)
+    allocates for itself and frees before it returns, for q ``(B, H, Sq,
+    D)`` and k ``(B, KV, Sk, D)`` of any device (``meta`` included): the
+    backward's float32 log-sum-exp and Delta (each row padded to whole
+    64-row tiles, as the ``wgmma`` route pads them), and the forward's
+    ``split`` partials where decode's rows take that route."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if op is torch.ops.repro_torch.flash_attention_bwd.default:
+        return 2 * b * h * (-(-sq // _KEYS_PER_TILE) * _KEYS_PER_TILE) * 4
+    tiles = -(-sk // _KEYS_PER_TILE)
+    if h // kv * sq <= DECODE_ROWS and tiles > SPLIT_TILES:
+        splits = -(-tiles // SPLIT_TILES)
+        return b * kv * splits * DECODE_ROWS * (d + 2) * 4
+    return 0
+
+
+def _flops(q_shape, k_shape, products: int) -> int:
+    b, h, sq, d = q_shape
+    return 2 * products * b * h * sq * k_shape[2] * d
+
+
+def _register_flops() -> None:
+    """The FLOP formulas: the plain versions' products, counted as
+    ``FlopCounterMode`` counts their matmuls (2 a multiply-add): the
+    forward's ``Q K^T`` and ``P V``; the backward's ``Q K^T`` again,
+    ``P^T dO``, ``dO V^T``, ``dS K`` and ``dS^T Q``."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q, k, v, lengths, causal, *, out_shape=None, **kwargs):
+        return _flops(q, k, 2)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _(q, k, v, o, do, lengths, causal, *, out_shape=None, **kwargs):
+        return _flops(q, k, 5)
+
+
+_register_flops()
+
+
+def register_dtensor_rules() -> None:
+    """Register both operators' ``DTensor`` sharding rules (idempotent).
+    On each mesh dim q, k, v, o, do and the outputs are sharded alike on
+    the batch (``lengths`` with them) or on the heads (``lengths``
+    replicated; only where the mesh dim divides both H and KV, so each
+    shard keeps whole groups of query heads with their KV head), or all
+    replicated; DTensor redistributes any other placement to one of
+    these, and counts it."""
+    if _RULES:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def options(q, k, n_in, n_out):
+        r, s0, s1 = Replicate(), Shard(0), Shard(1)
+        out = [([r] * n_out, [r] * (n_in + 1) + [None])]
+        out.append(([s0] * n_out, [s0] * (n_in + 1) + [None]))
+        h, kv = q.shape[1], k.shape[1]
+        if all(h % n == 0 and kv % n == 0 for n in q.mesh.shape):
+            out.append(([s1] * n_out, [s1] * n_in + [r, None]))
+        return out
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, lengths, causal):
+        return options(q, k, 3, 1)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _(q, k, v, o, do, lengths, causal):
+        return options(q, k, 5, 3)
+
+    _RULES.append(True)
+
+
+_RULES: list = []
 
 
 def run_bwd_route(name: str, q: torch.Tensor, k: torch.Tensor,

@@ -19,10 +19,17 @@ inactive tile's ``dA`` rows are zero, as its output was), and ``dB =
 A^T @ dC`` with ``dC`` zeroed on inactive tiles, its contracted axis
 (the forward's ``M``) padded with zero rows to a multiple of
 :data:`PAD_K`, so ``A^T``'s rows are TMA-legal and a bfloat16 ``dB``
-stays on ``wgmma``.  :func:`wavefront_matmul` goes through its
-``torch.autograd.Function`` only when a gradient is wanted, so a run
-under ``no_grad`` (the serve) launches what it launched before.  On a
-CPU tensor the backward is :func:`.ref.wavefront_matmul_ref_bwd`.
+stays on ``wgmma``.  The product and its gradient are the operators
+``torch.ops.repro_torch.wavefront_matmul`` and ``.wavefront_matmul_bwd``
+(``torch.library.custom_op``), each with a fake implementation that
+allocates what the CUDA route allocates (the outputs; the backward's
+transposed and padded operands are the workspace :func:`workspace_bytes`
+names), a FLOP formula (the plain versions' products), and, once
+:func:`register_dtensor_rules` has run, a ``DTensor`` sharding rule.
+The backward is recorded only when a gradient is wanted, so a run under
+``no_grad`` (the serve) launches what it launched before.  On a CPU
+tensor the backward is :func:`.ref.wavefront_matmul_ref_bwd`; on a
+``meta`` tensor each operator takes its fake implementation.
 """
 from __future__ import annotations
 
@@ -86,31 +93,34 @@ def wavefront_matmul(a: torch.Tensor, b: torch.Tensor,
     launch.  Differentiable in ``a`` and ``b`` (:func:`matmul_bwd`).
     """
     _check(a, b, row_active)
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _Matmul.apply(a, b, row_active)
-    return _forward(a, b, row_active)
+    return _matmul_op(a, b, row_active)
 
 
-def _forward(a, b, row_active):
+@torch.library.custom_op("repro_torch::wavefront_matmul", mutates_args=())
+def _matmul_op(a: torch.Tensor, b: torch.Tensor,
+               row_active: torch.Tensor) -> torch.Tensor:
     if build.plain(a):
         return wavefront_matmul_ref(a, b, row_active)
     a, b = a.contiguous(), b.contiguous()
     return run_route(route(a, b), a, b, row_active)
 
 
-class _Matmul(torch.autograd.Function):
-    """The forward kernel, and :func:`matmul_bwd` as its gradient."""
+@_matmul_op.register_fake
+def _(a, b, row_active):
+    return a.new_empty(a.shape[:-1] + b.shape[-1:])
 
-    @staticmethod
-    def forward(ctx, a, b, row_active):
-        ctx.save_for_backward(a, b, row_active)
-        return _forward(a, b, row_active)
 
-    @staticmethod
-    def backward(ctx, dc):
-        a, b, row_active = ctx.saved_tensors
-        da, db = matmul_bwd(a, b, row_active, dc)
-        return da, db, None
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dc):
+    a, b, row_active = ctx.saved_tensors
+    da, db = _matmul_bwd_op(a, b, row_active, dc)
+    return da, db, None
+
+
+_matmul_op.register_autograd(_backward, setup_context=_setup)
 
 
 def matmul_bwd(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
@@ -121,6 +131,13 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
     _check(a, b, row_active)
     if dc.shape != a.shape[:-1] + b.shape[-1:]:
         raise ValueError(f"dc has shape {tuple(dc.shape)}")
+    return _matmul_bwd_op(a, b, row_active, dc)
+
+
+@torch.library.custom_op("repro_torch::wavefront_matmul_bwd",
+                         mutates_args=())
+def _matmul_bwd_op(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
+                   dc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if build.plain(a):
         return wavefront_matmul_ref_bwd(a, b, row_active, dc)
     dc = dc.to(a.dtype).contiguous()
@@ -137,6 +154,90 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
                        device=a.device)
     db = _launch(route(at, dcm), at, dcm, every, "db")
     return da, db
+
+
+@_matmul_bwd_op.register_fake
+def _(a, b, row_active, dc):
+    return a.new_empty(a.shape), b.new_empty(b.shape)
+
+
+def workspace_bytes(op, a: torch.Tensor, b: torch.Tensor) -> int:
+    """Bytes the CUDA route of ``op`` (the product or its gradient)
+    allocates for itself and frees before it returns, for ``a`` and
+    ``b`` of any device (``meta`` included): the gradient's ``B^T``,
+    its masked ``dC`` (once as ``torch.where`` makes it, once padded to
+    :data:`PAD_K` rows), ``A^T`` padded alike and the all-active tile
+    flags, counted as if all were live at once; the product none."""
+    if op is not torch.ops.repro_torch.wavefront_matmul_bwd.default:
+        return 0
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    e = a.shape[0] if a.dim() == 3 else 1
+    mp = -(-m // PAD_K) * PAD_K
+    return e * ((n * k + m * n + mp * n + k * mp) * a.element_size()
+                + -(-k // TILE_M) * 4)
+
+
+def _register_flops() -> None:
+    """The FLOP formulas: the plain versions' products (2 a
+    multiply-add, as ``FlopCounterMode`` counts a matmul), ``A B`` for
+    the forward and ``dC B^T`` and ``A^T dC`` for the gradient."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def products(a, b, n):
+        e = a[0] if len(a) == 3 else 1
+        return 2 * n * e * a[-2] * a[-1] * b[-1]
+
+    @register_flop_formula(torch.ops.repro_torch.wavefront_matmul)
+    def _(a, b, row_active, *, out_shape=None, **kwargs):
+        return products(a, b, 1)
+
+    @register_flop_formula(torch.ops.repro_torch.wavefront_matmul_bwd)
+    def _(a, b, row_active, dc, *, out_shape=None, **kwargs):
+        return products(a, b, 2)
+
+
+_register_flops()
+
+
+def register_dtensor_rules() -> None:
+    """Register both operators' ``DTensor`` sharding rules (idempotent).
+    On each mesh dim: the expert (batch) axis of a 3-D product sharded
+    in every operand and output, ``row_active`` with it; ``B``'s columns
+    sharded (``C``'s columns with them; the gradient's ``dA`` a partial
+    sum); the contracted axis sharded in ``A`` and ``B`` (``C`` a
+    partial sum; the gradient's ``dA`` and ``dB`` sharded); or all
+    replicated.  DTensor redistributes any other placement to one of
+    these, and counts it."""
+    if _RULES:
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    r, p = Replicate(), Partial()
+
+    @register_sharding(torch.ops.repro_torch.wavefront_matmul.default)
+    def _(a, b, row_active):
+        la, lb = a.ndim - 1, b.ndim - 1
+        out = [([r], [r, r, r]),
+               ([Shard(la)], [r, Shard(lb), r]),
+               ([p], [Shard(la), Shard(lb - 1), r])]
+        if a.ndim == 3:
+            out.append(([Shard(0)], [Shard(0)] * 3))
+        return out
+
+    @register_sharding(torch.ops.repro_torch.wavefront_matmul_bwd.default)
+    def _(a, b, row_active, dc):
+        la, lb = a.ndim - 1, b.ndim - 1
+        out = [([r, r], [r, r, r, r]),
+               ([p, Shard(lb)], [r, Shard(lb), r, Shard(la)]),
+               ([Shard(la), Shard(lb - 1)], [Shard(la), Shard(lb - 1), r, r])]
+        if a.ndim == 3:
+            out.append(([Shard(0)] * 2, [Shard(0)] * 4))
+        return out
+
+    _RULES.append(True)
+
+
+_RULES: list = []
 
 
 def run_route(name: str, a: torch.Tensor, b: torch.Tensor,

@@ -1,46 +1,60 @@
-"""Multi-pod dry run: trace every (arch x input-shape x mesh) cell's step
-on ``meta`` tensors over a placeholder group of 512 ranks, and extract
-the roofline terms.  The port of ``repro/launch/dryrun.py``.
+"""Multi-pod dry run: every (arch x input-shape x mesh) cell's step run as
+a partitioned ``torch.distributed.tensor`` program on rank 0's ``meta``
+shards over a placeholder group of 512 ranks, and the roofline terms
+counted.  The port of ``repro/launch/dryrun.py``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-moe-3b-a800m \
+      --shape train_4k --mesh 1x1 --batch 8 --seq 512    # a cell cut to size
 
-Where the reference lowers and compiles each cell with XLA on 512
-placeholder host devices, the port builds its mesh over torch's ``fake``
-process group (rank 0 of 512, from ``torch.testing._internal.
-distributed.fake_pg``, a testing module of torch: it sends nothing, and
-no collective runs), started by :func:`main` or :func:`run_cell`, never
-at import.  Each cell's step (``launch.specs.build_cell``) runs once on
-its ``meta`` arguments, which hold shapes and no memory, the kernels
-taking their plain versions.  Per cell, JSON with the reference's keys:
+Where the reference lowers and compiles each cell with XLA's GSPMD on
+512 placeholder host devices, the port builds a CPU ``DeviceMesh`` over
+torch's ``fake`` process group (rank 0 of 512, from
+``torch.testing._internal.distributed.fake_pg``, a testing module of
+torch: it sends nothing), started by :func:`main` or :func:`run_cell`,
+never at import.  Each cell's arguments become ``DTensor``s of their
+placements over ``meta`` shards (``specs.distribute``), and its step
+runs once under :class:`StepTrace` (``specs.run_step``): DTensor's sharding propagation, under the port's
+rules (``partition.register_rules``: the hand-written kernels' operators,
+whose fake implementations run here, and a few elementwise operators)
+and the models' own placements (``models.common.batch_only``,
+``gather_fsdp``), inserts the collectives.  Per cell, JSON with the
+reference's keys:
 
 * ``memory.argument_bytes``: rank 0's bytes of every argument leaf under
   the cell's placements, exact;
-* ``memory.output_bytes``: the same for the step's outputs: an output
-  that is an argument updated in place keeps that argument's placement,
-  one that ``--pin-out`` pins takes the cell's ``out_shardings``, and any
-  other is counted whole (no sharding rule places it);
-* ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count
-  of that call: the whole step, every rank's share together (the
-  reference's XLA count is one device's share of the partitioned
-  program), of the plain versions' products (the kernels skip dead
-  tiles; the count does not);
-* ``lower_s``: the seconds of that call (nothing is compiled:
-  ``compile_s`` is ``None``);
-* ``collectives``: the reference's error form, ``{"error": ...}``: with
-  no GSPMD, no sharding rule turns the step into collectives;
-* ``temp_bytes``, ``generated_code_bytes``, ``bytes_accessed`` and
-  ``transcendentals``: ``None``, as the reference records what XLA does
-  not report.
+* ``memory.output_bytes``: rank 0's bytes of the step's outputs, each
+  under its own placements (an argument updated in place keeps its own);
+* ``memory.temp_bytes``: rank 0's peak of live bytes that the step's
+  operations allocated, less the outputs it made (:func:`record`);
+* ``cost.flops``: one rank's FLOPs: the products of its local operations
+  (``torch.utils.flop_counter``'s formulas, the kernels' own among them),
+  of every layer.  XLA's count is one device's too, but it also counts
+  elementwise operations, and the reference's ``lax.scan`` over a
+  config's layers, counted once a loop body;
+* ``collectives``: ``bytes``, ``count`` and ``total_bytes`` by the
+  reference's five kinds: each collective's result bytes on rank 0, as
+  :func:`collective_bytes` sums HLO result shapes.  On the CPU mesh
+  DTensor moves a shard from one dim to another by an all-gather and a
+  chunk (``gloo`` has no all-to-all), so that counts as all-gather;
+* ``lower_s``: the traced call's seconds (DTensor's sharding decisions,
+  made once an operation and its operands' specs, included); ``compile_s``,
+  ``generated_code_bytes``, ``bytes_accessed`` and ``transcendentals``:
+  ``None`` (no code is generated; nothing counts the others).
 
-:func:`collective_bytes`, the reference's parser of post-SPMD HLO text,
-is kept as the pure function it is.
+A cell whose step is too long a Python loop to trace (:data:`UNTRACED`),
+or whose step stops, keeps the reference's error form, ``{"error":
+...}``.  :func:`collective_bytes`, the reference's parser of post-SPMD HLO
+text, is kept as the pure function it is.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import re
@@ -54,10 +68,6 @@ from . import specs as specs_mod
 
 #: the placeholder group's size: the multi-pod mesh's 2 x 16 x 16 ranks
 PLACEHOLDER_RANKS = 512
-
-NO_COLLECTIVES = ("not counted: the port has no GSPMD, and no DTensor "
-                  "sharding rule turns its step into collectives on the "
-                  "placeholder group")
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
@@ -114,60 +124,310 @@ def placeholder_group(world_size: int = PLACEHOLDER_RANKS) -> None:
                             world_size=world_size)
 
 
-def output_bytes(cell: specs_mod.Cell, out) -> int:
-    """One device's bytes of the step's outputs ``out`` (the module
-    docstring says how each is placed)."""
-    placed = {id(t): sh for t, sh in
-              specs_mod.placed_leaves(cell.args, cell.in_shardings)}
-    pins = cell.out_shardings or (None,) * len(out)
-    total = 0
-    for o, pin in zip(out, pins):
-        for t, sh in specs_mod.placed_leaves((o,), (pin,)):
-            sh = sh or placed.get(id(t))
-            total += (t.numel() * t.element_size() if sh is None else
-                      partition.local_bytes(t, sh.spec, sh.mesh))
-    return total
+#: funcol's (and DTensor's) collectives by the reference's kinds; a
+#: collective of another name is recorded under ``unmapped``
+_FUNCOL_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+_COMM_NAMESPACES = ("_c10d_functional", "c10d_functional",
+                    "_c10d_functional_autograd", "c10d", "_dtensor")
+#: ops of those namespaces that move no data between ranks
+_NOT_COMM = ("wait_tensor", "_wrap_tensor_autograd")
+#: metadata queries, as ``FlopCounterMode`` passes them over
+_META_OPS = ("is_contiguous", "sym_is_contiguous", "is_strides_like_format",
+             "is_non_overlapping_and_dense", "size", "sym_size", "stride",
+             "sym_stride", "storage_offset", "sym_storage_offset", "numel",
+             "sym_numel", "dim")
+
+
+def _tensors(x) -> list:
+    from torch.utils._pytree import tree_leaves
+    import torch
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+class StepTrace:
+    """One rank's view of a step run as a ``DTensor`` program: a dispatch
+    mode that lets each ``DTensor`` operation go to DTensor first (as
+    ``CommDebugMode`` does), so that it sees the local operations and the
+    collectives DTensor runs for it, each on this rank's shards.  It
+    counts:
+
+    * ``flops``: the FLOPs of the local operations, by the formulas of
+      ``torch.utils.flop_counter`` (an operation it has none for is
+      decomposed first, as ``FlopCounterMode`` does), the kernels' own
+      among them: this rank's products and nothing else (no elementwise
+      operation, which XLA's count holds);
+    * ``collectives``: each collective's result bytes, by the reference's
+      kind (the module's ``_FUNCOL_KINDS``), and ``largest``, one
+      collective's largest result;
+    * ``peak``: the most bytes of storage that the step's operations had
+      allocated and not yet freed at once (tracked by each storage's
+      lifetime), a kernel's own workspace (``workspace_bytes`` of its
+      ``ops``) counted while it runs; the arguments' storages (``known``)
+      are not counted, and a collective's result and the tensor funcol
+      wraps it in (``_wrap_tensor_autograd``) are one buffer, live while
+      either is (which of the two the step goes on with is funcol's
+      choice, and differs between a real group and the ``fake`` one).
+      On a real group the process group's own thread may hold a finished
+      collective's buffer a little longer (``gloo``'s worker: when is its
+      scheduler's choice), so a real rank's peak may differ from the
+      ``fake`` group's by such a buffer.
+    """
+
+    def __init__(self, known=()):
+        import threading
+        import weakref
+        self._weakref = weakref
+        # a real group's worker thread may drop a collective's buffer last
+        self._lock = threading.Lock()
+        self.flops = 0
+        self.bytes = {c: 0 for c in _COLLECTIVES}
+        self.count = {c: 0 for c in _COLLECTIVES}
+        self.unmapped: dict = {}
+        self.live = 0
+        self.peak = 0
+        #: the largest result of one collective
+        self.largest = 0
+        #: storage id -> (its weak reference, its buffer: [bytes, members])
+        self._storages: dict = {}
+        for t in known:
+            self._track(_local(t), count=False)
+
+    def _track(self, t, count: bool = True, like=None) -> None:
+        """Count ``t``'s storage from now until it is freed, unless it is
+        known; ``like``: a tensor whose buffer it joins."""
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._storages:
+            return
+        buf = None
+        if like is not None:
+            buf = self._storages.get(id(like.untyped_storage()), (0, None))[1]
+        with self._lock:
+            if buf is None:
+                buf = [st.nbytes() if count else 0, 0]
+                self.live += buf[0]
+            buf[1] += 1
+
+        def freed(_, key=key, buf=buf):
+            with self._lock:
+                self._storages.pop(key, None)
+                buf[1] -= 1
+                if not buf[1]:
+                    self.live -= buf[0]
+
+        self._storages[key] = (self._weakref.ref(st, freed), buf)
+
+    def collectives(self) -> dict:
+        out = {"bytes": dict(self.bytes), "count": dict(self.count),
+               "total_bytes": sum(self.bytes.values())}
+        if self.unmapped:
+            out["unmapped"] = dict(self.unmapped)
+        return out
+
+    @contextlib.contextmanager
+    def mode(self):
+        """Trace what runs inside.  Python's cyclic garbage collector is
+        run first and held off until the end, so that tensors held in
+        reference cycles live to the end of the step, whatever ran before
+        (the peak is then an upper bound, the same on every run)."""
+        gc.collect()
+        gc.disable()
+        try:
+            with self._mode():
+                yield self
+        finally:
+            gc.enable()
+
+    def _mode(self):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+        import torch
+        trace = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                # DTensor's sharding propagation runs an operation on
+                # fake tensors of the global shapes, once per schema:
+                # that is no work of this rank's
+                if isinstance(func, torch._ops.HigherOrderOperator) or any(
+                        issubclass(t, FakeTensor) for t in types):
+                    return func(*args, **kwargs)
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                packet = func._overloadpacket
+                name = packet.__name__
+                if name in _META_OPS:
+                    return func(*args, **kwargs)
+                if packet not in flop_registry:
+                    with self:
+                        r = func.decompose(*args, **kwargs)
+                    if r is not NotImplemented:
+                        return r
+                out = func(*args, **kwargs)
+                if any(isinstance(t, FakeTensor) for t in _tensors(out)):
+                    return out      # a factory of the same propagation
+                ns = func.namespace
+                if ns in _COMM_NAMESPACES and name not in _NOT_COMM:
+                    nbytes = sum(t.numel() * t.element_size()
+                                 for t in _tensors(out))
+                    kind = _FUNCOL_KINDS.get(name)
+                    if kind is None:
+                        trace.unmapped[str(func)] = \
+                            trace.unmapped.get(str(func), 0) + 1
+                    else:
+                        trace.bytes[kind] += nbytes
+                        trace.largest = max(trace.largest, nbytes)
+                        trace.count[kind] += 1
+                if packet in flop_registry:
+                    trace.flops += flop_registry[packet](*args, **kwargs,
+                                                         out_val=out)
+                work = _workspace(func, args)
+                like = args[0] if name == "_wrap_tensor_autograd" else None
+                for t in _tensors(out):
+                    trace._track(t, like=like)
+                trace.peak = max(trace.peak, trace.live + work)
+                return out
+
+        return _Mode()
+
+
+def _workspace(func, args) -> int:
+    """The kernel's own workspace, for the kernels' operators."""
+    if func.namespace != "repro_torch":
+        return 0
+    from ..kernels.flash_attention import ops as aops
+    from ..kernels.wavefront_matmul import ops as mops
+    ops = aops if "attention" in func.__name__ else mops
+    return ops.workspace_bytes(func, args[0], args[1])
+
+
+def output_bytes(out) -> int:
+    """One device's bytes of the step's outputs ``out``: each output
+    ``DTensor``'s shard under its own placements (an argument updated in
+    place keeps the argument's), a plain tensor whole."""
+    return sum(partition.placed_bytes(t)
+               for t in partition.leaves(specs_mod.trees(out)))
 
 
 def measure(cell: specs_mod.Cell) -> dict:
-    """``lower_s`` and the record's ``memory`` and ``cost`` for one call of
-    the cell's step on its ``meta`` arguments."""
-    from torch.utils.flop_counter import FlopCounterMode
-    args = specs_mod.argument_bytes(cell)
+    """``lower_s``, the record's ``memory`` and ``cost`` and its
+    ``collectives`` for one call of the cell's step as a ``DTensor``
+    program on rank 0's ``meta`` shards (``specs.distribute``).
+    ``temp_bytes`` is the trace's peak less the bytes of the outputs that
+    the step made (those that are not arguments updated in place).  A
+    cell on a mesh that is no ``DeviceMesh`` (the tests' ``FakeMesh``,
+    which has no ranks) runs its step unpartitioned on its ``meta``
+    arguments: then ``flops`` and ``temp_bytes`` are the whole step's,
+    and no collective is counted."""
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = specs_mod.placed_leaves(cell.args, cell.in_shardings)[0][1].mesh
+    if isinstance(mesh, DeviceMesh):
+        args = specs_mod.distribute(cell)
+        run = specs_mod.run_step
+    else:
+        args = cell.args
+        run = lambda cell, args: cell.step_fn(*args)
+    trace = StepTrace(known=specs_mod.arg_tensors(args))
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as fc:
-        out = cell.step_fn(*cell.args)
+    with trace.mode():
+        out = run(cell, args)
     lower_s = time.perf_counter() - t0
+    known = {id(_local(t).untyped_storage())
+             for t in specs_mod.arg_tensors(args)}
+    made = {}
+    for t in partition.leaves(specs_mod.trees(out)):
+        st = None if t is None else _local(t).untyped_storage()
+        if st is not None and id(st) not in known:
+            made[id(st)] = st.nbytes()
     return {"lower_s": lower_s,
-            "memory": {"argument_bytes": args,
-                       "output_bytes": output_bytes(cell, out),
-                       "temp_bytes": None, "generated_code_bytes": None},
-            "cost": {"flops": fc.get_total_flops(), "bytes_accessed": None,
-                     "transcendentals": None}}
+            "memory": {"argument_bytes": specs_mod.argument_bytes(cell),
+                       "output_bytes": output_bytes(out),
+                       "temp_bytes": trace.peak - sum(made.values()),
+                       "generated_code_bytes": None},
+            "cost": {"flops": trace.flops, "bytes_accessed": None,
+                     "transcendentals": None},
+            "collectives": trace.collectives()}
+
+
+#: cells whose step is a Python loop of thousands of steps, each step's
+#: operations partitioned by DTensor one by one: not traced, the
+#: reference's error form naming the time instead
+UNTRACED = {
+    ("xlstm-350m", "train_4k"): (
+        "not traced: xlstm's sLSTM is a Python loop of 4,095 steps a layer, "
+        "run three times (forward, remat's recompute, backward); the "
+        "unpartitioned meta trace took 390-398 s a cell"),
+    ("xlstm-350m", "prefill_32k"): (
+        "not traced: xlstm's prefill is 32,768 decode steps of 24 layers "
+        "through Python; the unpartitioned meta trace did not end in hours"),
+}
+
+
+def _mesh(multi_pod: bool, debug: str | None):
+    """The production mesh, or with ``debug`` (``"DxM"``) a ``("data",
+    "model")`` mesh of D x M ranks; on the CPU of the placeholder group."""
+    if debug is None:
+        return (mesh_mod.make_production_mesh(multi_pod=multi_pod,
+                                              device="cpu"),
+                "2x16x16" if multi_pod else "16x16")
+    d, m = (int(x) for x in debug.split("x"))
+    return mesh_mod.make_debug_mesh(d, m, device="cpu"), debug
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              fsdp: bool = True, seq_shard: bool = True,
              remat: bool | None = None, extra_tag: str = "",
              pin_out: bool = False, cache_axis: str = "seq",
-             microbatches: int = 1) -> dict:
+             microbatches: int = 1, debug_mesh: str | None = None,
+             batch: int | None = None, seq: int | None = None) -> dict:
+    """One cell's record.  ``debug_mesh`` (``"DxM"``) in place of the
+    production mesh, ``batch`` and ``seq`` in place of the shape's global
+    batch and sequence length: a cell cut to size.  A cell of
+    :data:`UNTRACED`, or one whose step stops (an operation no DTensor
+    rule covers: the error names it), holds the reference's error form,
+    ``{"error": ...}``, in ``memory``, ``cost`` and ``collectives``."""
     placeholder_group()
-    mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod, device="cpu")
+    mesh, mesh_name = _mesh(multi_pod, debug_mesh)
     chips = mesh_mod.mesh_chips(mesh)
+    shape = configs.SHAPES[shape_name]
+    shape = configs.ShapeSpec(shape.name, seq or shape.seq_len,
+                              batch or shape.global_batch, shape.kind)
     cell = specs_mod.build_cell(arch, shape_name, mesh, fsdp=fsdp,
                                 seq_shard=seq_shard, remat=remat,
                                 pin_out=pin_out, cache_axis=cache_axis,
-                                microbatches=microbatches)
-    m = measure(cell)
+                                microbatches=microbatches, shape=shape)
+    why = UNTRACED.get((cell.cfg.name, shape_name))
+    if why is None:
+        try:
+            m = measure(cell)
+        except Exception as e:
+            why = f"{type(e).__name__}: {e}".splitlines()[0]
+    if why is not None:
+        m = {"lower_s": 0.0, "memory": {"error": why}, "cost": {"error": why},
+             "collectives": {"error": why}}
     return {
-        "arch": arch, "shape": shape_name,
-        "mesh": "2x16x16" if multi_pod else "16x16",
+        "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "chips": chips, "kind": cell.shape.kind,
         "params": cell.model_params_bytes,
         "lower_s": round(m["lower_s"], 1), "compile_s": None,
         "tag": extra_tag,
         "memory": m["memory"], "cost": m["cost"],
-        "collectives": {"error": NO_COLLECTIVES},
+        "collectives": m["collectives"],
     }
 
 
@@ -186,24 +446,38 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="a (data, model) debug mesh of D x M ranks in "
+                         "place of the production meshes")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="the global batch in place of the shape's")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="the sequence length in place of the shape's")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
     meshes = [args.multi_pod]
     if args.both_meshes:
         meshes = [False, True]
+    if args.mesh:
+        meshes = [args.mesh]
 
     if args.all:
         cells = [(a, s.name) for a, s, ok, _ in configs.cells() if ok]
     else:
         cells = [(args.arch, args.shape)]
 
+    if args.mesh:
+        d, m = (int(x) for x in args.mesh.split("x"))
+        placeholder_group(d * m)
     placeholder_group()
     remat = None if args.remat is None else args.remat == "on"
     n_fail = 0
     for arch, shape in cells:
         for mp in meshes:
-            tag = f"{arch}__{shape}__{'2x16x16' if mp else '16x16'}"
+            name = mp if isinstance(mp, str) else (
+                "2x16x16" if mp else "16x16")
+            tag = f"{arch}__{shape}__{name}"
             if args.tag:
                 tag += f"__{args.tag}"
             fname = os.path.join(args.out, tag + ".json")
@@ -211,7 +485,9 @@ def main(argv=None) -> int:
                 print(f"SKIP {tag} (cached)")
                 continue
             try:
-                rec = run_cell(arch, shape, multi_pod=mp,
+                rec = run_cell(arch, shape, multi_pod=mp is True,
+                               debug_mesh=mp if isinstance(mp, str) else None,
+                               batch=args.batch, seq=args.seq,
                                fsdp=not args.no_fsdp,
                                seq_shard=not args.no_seq_shard,
                                remat=remat, extra_tag=args.tag,
@@ -222,9 +498,16 @@ def main(argv=None) -> int:
                     json.dump(rec, f, indent=1)
                 c = rec["cost"]
                 m = rec["memory"]
+                if "error" in c:
+                    print(f"ERR  {tag}: {c['error']}", flush=True)
+                    continue
+                k = rec["collectives"]
                 print(f"OK   {tag}: flops={c['flops']:.3e} "
                       f"args={m['argument_bytes']:.3e}B/device "
                       f"out={m['output_bytes']:.3e}B/device "
+                      f"temp={m['temp_bytes']:.3e}B/device "
+                      f"collectives={k['total_bytes']:.3e}B "
+                      f"{ {n: b for n, b in k['bytes'].items() if b} } "
                       f"({rec['lower_s']}s)", flush=True)
             except Exception as e:
                 n_fail += 1

@@ -23,7 +23,7 @@ import torch
 from .. import configs
 from ..models import api, convert, vlm
 from ..models.common import ModelConfig
-from ..models.transformer import Model
+from ..models.transformer import Model, tree_map
 from ..sharding import partition
 from ..training import optimizer as opt_mod, steps
 
@@ -72,6 +72,82 @@ def placed_leaves(args, shardings) -> list:
             raise ValueError("arguments and shardings differ in structure")
         out += [(t, sh) for t, sh in zip(got, shs) if t is not None]
     return out
+
+
+def trees(x):
+    """A step's arguments or outputs with each model as its parameter
+    tree (a tuple stays a tuple, a named tuple a list of its fields)."""
+    if isinstance(x, Model):
+        return x.params()
+    if isinstance(x, (tuple, list)):
+        return [trees(v) for v in x]
+    if isinstance(x, dict):
+        return {k: trees(v) for k, v in x.items()}
+    return x
+
+
+def arg_tensors(args) -> list:
+    """Every tensor leaf of a cell's arguments (or of the ``DTensor``
+    arguments :func:`distribute` made of them)."""
+    return [t for t in partition.leaves(trees(args)) if t is not None]
+
+
+def distribute(cell: Cell, args: tuple | None = None, local=None) -> tuple:
+    """``args`` (by default the cell's own) as ``DTensor``s of the cell's
+    ``in_shardings``: a model with ``DTensor`` parameters, every other
+    leaf a ``DTensor``.  ``local(leaf, sharding)`` gives this rank's
+    shard of each leaf: by default an empty ``meta`` tensor of the
+    shard's shape, so nothing is allocated; :func:`slice_local` copies it
+    out of whole tensors, as every rank holds them, :func:`view_local`
+    views it."""
+    if local is None:
+        def local(t, sh):
+            return torch.empty(partition.local_shape(t.shape, sh.spec,
+                                                     sh.mesh),
+                               dtype=t.dtype, device="meta")
+
+    def leaf(t, sh):
+        if t is None:
+            return None
+        return partition.from_local(local(t, sh), sh, tuple(t.shape))
+
+    out = []
+    for a, s in zip(cell.args if args is None else args, cell.in_shardings):
+        if isinstance(a, Model):
+            out.append(convert.as_model(cell.cfg, tree_map(leaf, a.params(),
+                                                           s)))
+        elif a is None:
+            out.append(None)
+        else:
+            out.append(tree_map(leaf, a, s))
+    return tuple(out)
+
+
+def slice_local(t, sh):
+    """This rank's shard of whole tensor ``t`` under ``sh``: a copy, so
+    that a step that updates its arguments in place leaves ``t`` as it
+    was."""
+    return t[partition.local_slices(t.shape, sh)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def view_local(t, sh):
+    """This rank's shard of whole tensor ``t`` under ``sh``, a view where
+    the slice is contiguous (on a one-rank mesh, ``t`` itself: nothing is
+    copied)."""
+    return t[partition.local_slices(t.shape, sh)].contiguous()
+
+
+def run_step(cell: Cell, args):
+    """The cell's step on ``DTensor`` arguments (:func:`distribute`): the
+    port's step function as it is, each operation partitioned by
+    DTensor's sharding propagation under the port's rules
+    (``partition.register_rules``), and any plain tensor the step makes
+    taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    partition.register_rules()
+    with implicit_replication():
+        return cell.step_fn(*args)
 
 
 def argument_bytes(cell: Cell, index: int | None = None) -> int:

@@ -123,7 +123,7 @@ def prefill(cfg: ModelConfig, model: transformer.Model, batch, max_len: int):
         ck, cv, el = encdec.prefill_cross(
             cfg, params, enc_out,
             torch.full((b,), t, dtype=torch.int32, device=dev))
-        cache = dict(encdec.init_cache(cfg, b, max_len, t, dev),
+        cache = dict(encdec.init_cache(cfg, b, max_len, t, like=frames),
                      cross_k=ck, cross_v=cv, enc_len=el)
         return (torch.zeros((b, cfg.vocab), dtype=cfg.dtype, device=dev),
                 cache, torch.zeros((b,), dtype=torch.int32, device=dev))

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import ModelConfig, dense_init, rotary
+from .common import ModelConfig, dense_init, full_like_batch, is_dtensor, \
+    merge_dims, rotary, split_dim
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
@@ -41,14 +42,13 @@ def attn_specs() -> dict:
 
 def _project(x, w):
     """``x @ w`` for x (..., d) and w (d, heads, hd) -> (..., heads, hd)."""
-    d, heads, hd = w.shape
-    return (x @ w.reshape(d, heads * hd)).unflatten(-1, (heads, hd))
+    _, heads, hd = w.shape
+    return split_dim(x @ merge_dims(w, 1), -1, heads, hd)
 
 
 def _out(o, wo):
     """o (..., H, hd) times wo (H, hd, d) -> (..., d)."""
-    h, hd, d = wo.shape
-    return o.flatten(-2) @ wo.reshape(h * hd, d)
+    return merge_dims(o, -2) @ merge_dims(wo, 0)
 
 
 def attend(cfg: ModelConfig, p, x, positions, *, causal=True, kv_x=None,
@@ -90,9 +90,14 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
-               dtype=None, device=None) -> KVCache:
+               dtype=None, device=None, like=None) -> KVCache:
+    """Zeros; with ``like`` (the batch's activations), on its device and,
+    for a ``DTensor``, placed by its batch (``common.full_like_batch``)."""
     shape = (n_layers, batch, cfg.kv_heads, max_len, cfg.hd)
     dtype = dtype or cfg.dtype
+    if like is not None:
+        return KVCache(k=full_like_batch(like, shape, 0, dtype, 1),
+                       v=full_like_batch(like, shape, 0, dtype, 1))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -110,7 +115,43 @@ def _write_at(cache, new, lengths):
     (B,) write positions, clamped into the cache as
     ``lax.dynamic_update_slice`` clamps them."""
     pos = lengths.long().clamp(0, cache.shape[2] - 1)
+    if is_dtensor(cache):
+        return _write_at_shards(cache, new, pos)
     cache[torch.arange(cache.shape[0], device=cache.device), :, pos] = new
+    return cache
+
+
+def _write_at_shards(cache, new, pos):
+    """:func:`_write_at` on a ``DTensor`` cache, each rank on its own
+    shard: ``new`` and ``pos`` are placed as the cache's batch and heads
+    (a collective where they are not), and a rank writes the rows whose
+    position falls in its slice of the sequence (no collective: DTensor's
+    in-place ``index_put_`` cannot write a sequence-sharded cache)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, place = cache.device_mesh, cache.placements
+
+    def placed(t, dims):
+        want = [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                else Replicate() for p in place]
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, want).to_local()
+
+    new_l = placed(new, {0: 0, 1: 1})
+    pos_l = placed(pos, {0: 0})
+    local = cache.to_local()
+    coord, sizes = mesh.get_coordinate(), mesh.shape
+    part = 0
+    for i, p in enumerate(place):
+        if isinstance(p, Shard) and p.dim == 2:
+            part = part * sizes[i] + coord[i]
+    at = pos_l - part * local.shape[2]
+    inside = (at >= 0) & (at < local.shape[2])
+    at = at.clamp(0, local.shape[2] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    local[rows, :, at] = torch.where(inside[:, None, None], new_l,
+                                     local[rows, :, at])
     return cache
 
 

@@ -127,17 +127,209 @@ def swiglu(x, w_in, w_gate, w_out):
     return (F.silu(g) * h) @ w_out
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed.tensor.DTensor`` (without
+    importing that package where nothing has)."""
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def full_like_batch(like, shape, fill, dtype, batch_dim: int = 0):
+    """``torch.full(shape, fill)`` on ``like``'s device, for a state or
+    cache of ``like``'s batch (its dim 0) at dim ``batch_dim``.  Where
+    ``like`` is a ``DTensor`` (the step run as a partitioned program), a
+    ``DTensor`` whose dim ``batch_dim`` is placed as ``like``'s dim 0 and
+    every other dim replicated: each rank makes its own batch rows."""
+    if not is_dtensor(like):
+        return torch.full(shape, fill, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    place = [Shard(batch_dim) if isinstance(p, Shard) and p.dim == 0
+             else Replicate() for p in like.placements]
+    mine = like.to_local()
+    local = list(shape)
+    local[batch_dim] = mine.shape[0]
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(
+        torch.full(local, fill, dtype=dtype, device=mine.device),
+        like.device_mesh, place, run_check=False, shape=torch.Size(shape),
+        stride=tuple(stride))
+
+
+def batch_only(x, like=None):
+    """``x``; a ``DTensor`` placed on its batch (dim 0) alone, as ``like``
+    (by default ``x`` itself) places its dim 0, and replicated over every
+    other mesh dim (a collective where it was placed otherwise), so that
+    what follows is batch-parallel: the residual stream from the
+    embeddings on, the SSD's and the xLSTM cells' chunked einsums (whose
+    contracted dims DTensor would otherwise leave sharded, and all-reduce
+    their (B, H, NC, CL, CL) products)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    want = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in (x if like is None else like).placements]
+    return x if want == list(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity on a ``DTensor``, whose gradient's shard is made
+    contiguous (the gradient's own ``contiguous()`` looks at its global
+    strides and leaves the shard as it is)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+
+def contiguous_grad(y):
+    """``y``; for a ``DTensor``, its gradient's shard made contiguous (on
+    2 x 16 x 16, where the batch spans two mesh dims, DTensor can hand a
+    product's backward a gradient shard that is a strided view, which
+    that backward's ``view`` cannot take)."""
+    return _ContiguousGrad.apply(y) if is_dtensor(y) else y
+
+
+#: the mesh dims that shard a weight's ``fsdp`` dim and the batch
+BATCH_MESH_DIMS = ("pod", "data")
+
+
+def gather_fsdp(tree):
+    """A layer's weights (a dict or list of tensors) as its operations
+    use them: in a partitioned step, each ``DTensor`` gathered over the
+    mesh dims of :data:`BATCH_MESH_DIMS` (ZeRO-3's all-gather before use;
+    its gradient comes back through a reduce-scatter), its ``model``
+    placement kept.  A plain tensor is itself."""
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_fsdp(v) for v in tree]
+    if not is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate
+    names = tree.device_mesh.mesh_dim_names or ()
+    want = [Replicate() if n in BATCH_MESH_DIMS else p
+            for n, p in zip(names, tree.placements)]
+    return tree if want == list(tree.placements) else tree.redistribute(
+        tree.device_mesh, want)
+
+
+def embed(cfg: ModelConfig, params, tokens):
+    """The embeddings of ``tokens`` at ``cfg.dtype``.  In a partitioned
+    step (``DTensor``) the table is looked up whole (gathered where it is
+    sharded: DTensor's masked lookup of a vocabulary shard leaves a
+    partial sum whose gradient it cannot always place) and the result
+    placed on the batch alone (:func:`batch_only`), so that the residual
+    stream is batch-parallel."""
+    table = params["embed"]
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return batch_only(F.embedding(tokens, table.to(cfg.dtype)), tokens)
+
+
+def split_dim(y, dim: int, *sizes):
+    """``y.unflatten(dim, sizes)``.  A ``DTensor`` whose dim ``dim`` is
+    sharded over mesh dims whose shards would cut a ``sizes[0]`` group
+    apart is first replicated over those mesh dims (DTensor refuses to
+    unflatten an uneven shard)."""
+    dim %= y.ndim
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+        cut = lambda p: isinstance(p, Shard) and p.dim == dim
+        n = 1
+        for i, p in enumerate(y.placements):
+            n *= y.device_mesh.shape[i] if cut(p) else 1
+        if sizes[0] % n:
+            y = y.redistribute(y.device_mesh, [
+                Replicate() if cut(p) else p for p in y.placements])
+    return y.unflatten(dim, sizes)
+
+
+class _Merge(torch.autograd.Function):
+    """``y.flatten(dim, dim + 1)`` whose gradient is unflattened by
+    :func:`split_dim`."""
+
+    @staticmethod
+    def forward(ctx, y, dim):
+        ctx.dim, ctx.sizes = dim, y.shape[dim:dim + 2]
+        return y.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, *ctx.sizes), None
+
+
+def merge_dims(y, dim: int):
+    """``y.flatten(dim, dim + 1)``; for a ``DTensor``, its gradient is
+    unflattened by :func:`split_dim` (DTensor may have sharded the
+    gradient where it cannot split it)."""
+    dim %= y.ndim
+    return _Merge.apply(y, dim) if is_dtensor(y) else y.flatten(dim, dim + 1)
+
+
 def softmax_cross_entropy(logits, targets, mask=None):
     """logits: (B, S, V); the mean negative log-likelihood of ``targets``
-    (B, S) under a float32 log-softmax, or its mean over ``mask``."""
+    (B, S) under a float32 log-softmax (their sum over their count), or
+    its mean over ``mask``.  In a partitioned step (``DTensor``s), each
+    rank takes its own rows (:func:`_cross_entropy_rows`)."""
+    if is_dtensor(logits):
+        return _cross_entropy_rows(logits, targets, mask)
+    nll = _nll(logits, targets)
+    if mask is None:
+        return torch.sum(nll) / nll.numel()
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _nll(logits, targets):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def _cross_entropy_rows(logits, targets, mask):
+    """:func:`softmax_cross_entropy` of ``DTensor`` logits: the logits
+    placed on the batch alone (the vocabulary gathered where it is
+    sharded), ``targets`` and ``mask`` as their batch, each rank's sums
+    of its own rows a partial sum over the batch's mesh dims.  The rows'
+    operations run on plain local tensors, so their gradient needs no
+    DTensor rule (a gold logit's ``gather`` over a sharded vocabulary has
+    none that holds, in some torch versions)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    logits = batch_only(logits)
+    mesh = logits.device_mesh
+    rows = [p if isinstance(p, Shard) else Replicate()
+            for p in logits.placements]
+    total = [Partial() if isinstance(p, Shard) else Replicate()
+             for p in logits.placements]
+
+    def local(t):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, rows).to_local()
+
+    def summed(t):
+        return DTensor.from_local(torch.sum(t), mesh, total, run_check=False)
+
+    nll = _nll(logits.to_local(), local(targets))
     if mask is None:
-        return torch.mean(nll)
-    mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return summed(nll) / targets.numel()
+    mask = local(mask).float()
+    return summed(nll * mask) / torch.clamp(summed(mask), min=1.0)
 
 
 # --------------------------------------------------------------------------

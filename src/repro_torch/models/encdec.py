@@ -16,7 +16,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
 from . import attention, transformer
-from .common import (ModelConfig, dense_init, embed_init, rms_norm,
+from .common import (ModelConfig, dense_init, embed, embed_init,
+                     full_like_batch, gather_fsdp, rms_norm,
                      softmax_cross_entropy)
 
 
@@ -78,9 +79,10 @@ def _run(cfg: ModelConfig, body, layers, x):
     """``body(lp, x)`` over the layers, each under a checkpoint with
     ``cfg.remat`` when a gradient is wanted."""
     remat = cfg.remat and torch.is_grad_enabled()
+    run = lambda lp, x: body(gather_fsdp(lp), x)
     for lp in layers:
-        x = checkpoint(body, lp, x, use_reentrant=False) if remat \
-            else body(lp, x)
+        x = checkpoint(run, lp, x, use_reentrant=False) if remat \
+            else run(lp, x)
     return x
 
 
@@ -102,7 +104,7 @@ def decode_train(cfg: ModelConfig, params, tokens, enc_out,
                  enc_lengths=None):
     """The decoder over whole sequences.  tokens: (B, S).  Returns logits
     (B, S, V)."""
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = embed(cfg, params, tokens)
     pos = _positions(x)
 
     def body(lp, x):
@@ -133,15 +135,23 @@ def loss_fn(cfg: ModelConfig, params, frame_embeds, tokens, mask=None,
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
-               device=None, dtype=None) -> dict:
+               device=None, dtype=None, like=None) -> dict:
+    """Zeros; with ``like`` (the batch's activations), placed by its batch
+    (``common.full_like_batch``)."""
     dtype = dtype or cfg.dtype
     cross = (cfg.dec_layers, batch, cfg.kv_heads, enc_len, cfg.hd)
+    if like is not None:
+        zeros = lambda shape, dt, dim: full_like_batch(like, shape, 0, dt,
+                                                       dim)
+    else:
+        zeros = lambda shape, dt, dim: torch.zeros(shape, dtype=dt,
+                                                   device=device)
     return {
         "self": attention.init_cache(cfg, batch, max_len, cfg.dec_layers,
-                                     dtype=dtype, device=device),
-        "cross_k": torch.zeros(cross, dtype=dtype, device=device),
-        "cross_v": torch.zeros(cross, dtype=dtype, device=device),
-        "enc_len": torch.zeros((batch,), dtype=torch.int32, device=device),
+                                     dtype=dtype, device=device, like=like),
+        "cross_k": zeros(cross, dtype, 1),
+        "cross_v": zeros(cross, dtype, 1),
+        "enc_len": zeros((batch,), torch.int32, 0),
     }
 
 
@@ -158,8 +168,10 @@ def prefill_cross(cfg: ModelConfig, params, enc_out, enc_lengths):
     def kv(w):
         return attention._project(enc_out,
                                   w.to(enc_out.dtype)).transpose(1, 2)
-    ks = torch.stack([kv(lp["cross_attn"]["wk"]) for lp in params["dec"]])
-    vs = torch.stack([kv(lp["cross_attn"]["wv"]) for lp in params["dec"]])
+    ks = torch.stack([kv(gather_fsdp(lp["cross_attn"]["wk"]))
+                      for lp in params["dec"]])
+    vs = torch.stack([kv(gather_fsdp(lp["cross_attn"]["wv"]))
+                      for lp in params["dec"]])
     return ks.contiguous(), vs.contiguous(), enc_lengths
 
 
@@ -174,9 +186,10 @@ def _cross_decode(cfg: ModelConfig, p, x, ck, cv, enc_len):
 def decode_step(cfg: ModelConfig, params, cache, token, lengths):
     """One decode step.  The self-attention cache is updated in place.
     Returns (logits (B, V), cache, lengths + 1)."""
-    x = params["embed"].to(cfg.dtype)[token]
+    x = embed(cfg, params, token)
     sc = cache["self"]
     for i, lp in enumerate(params["dec"]):
+        lp = gather_fsdp(lp)
         h = rms_norm(x, lp["ln_self"], cfg.norm_eps)
         a, _ = attention.attend_decode(cfg, lp["self_attn"], h,
                                        attention.KVCache(sc.k[i], sc.v[i]),

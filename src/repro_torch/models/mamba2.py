@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init, silu
+from .common import (ModelConfig, batch_only, contiguous_grad, dense_init,
+                     full_like_batch, gather_fsdp, silu)
 
 #: tokens a chunk of the parallel scan; a sequence that it does not
 #: divide is one chunk (the reference's rule)
@@ -78,7 +79,8 @@ def ssd_apply(cfg: ModelConfig, p, u, return_state=False):
     that divides S, else one chunk."""
     b, s, _ = u.shape
     h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    proj = u @ p["w_in"].to(u.dtype)
+    p = gather_fsdp(p)
+    proj = batch_only(contiguous_grad(u @ p["w_in"].to(u.dtype)), u)
     x, z, bm, cm, dt = _split_proj(cfg, proj)
     x = x.reshape(b, s, h, pd)
     bm = bm.reshape(b, s, h, n).float()
@@ -131,9 +133,11 @@ def ssd_apply(cfg: ModelConfig, p, u, return_state=False):
 # --------------------------------------------------------------------------
 
 def init_ssd_state(cfg: ModelConfig, batch: int, n_layers: int,
-                   device=None) -> torch.Tensor:
-    return torch.zeros((n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
-                        cfg.ssm_head_dim), dtype=torch.float32, device=device)
+                   device=None, like=None) -> torch.Tensor:
+    shape = (n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    if like is not None:
+        return full_like_batch(like, shape, 0, torch.float32, 1)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 def ssd_state_spec() -> tuple:
@@ -144,7 +148,8 @@ def ssd_decode(cfg: ModelConfig, p, u, state):
     """u: (B, d); state: (B, H, N, P) -> (y (B, d), new state)."""
     b, _ = u.shape
     h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    proj = u @ p["w_in"].to(u.dtype)
+    p = gather_fsdp(p)
+    proj = batch_only(contiguous_grad(u @ p["w_in"].to(u.dtype)), u)
     x, z, bm, cm, dt = _split_proj(cfg, proj)
     x = x.reshape(b, h, pd).float()
     bm = bm.reshape(b, h, n).float()

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.wavefront_matmul.ops import TILE_M, wavefront_matmul
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, is_dtensor
 
 MODES = ("expert_choice", "token_dense")
 
@@ -87,12 +87,24 @@ def _add_rows(out, topi, rows):
 
 
 def _gather(flat, topi):
-    """``flat[topi]`` as (E, C, d)."""
-    return flat[topi.reshape(-1)].reshape(topi.shape + flat.shape[1:])
+    """``flat[topi]``: (E, C, d)."""
+    return flat[topi]
 
 
 def _combine(ye, topi, n):
-    """The expert-ordered adds of ``ye`` (E, C, d) into (N, d)."""
+    """The expert-ordered adds of ``ye`` (E, C, d) into (N, d).  In a
+    partitioned step (``DTensor``s), each rank makes the adds whole on
+    replicas of ``ye`` and ``topi`` (an all-gather where they are
+    sharded): ``topi`` holds tokens of the whole batch, and DTensor has no
+    rule for an in-place ``index_put_`` that scatters rows across
+    shards."""
+    if is_dtensor(ye):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = ye.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        out = _combine(ye.redistribute(mesh, whole).to_local(),
+                       topi.redistribute(mesh, whole).to_local(), n)
+        return DTensor.from_local(out, mesh, whole, run_check=False)
     return _add_rows(ye.new_zeros((n,) + ye.shape[2:]), topi, ye)
 
 

@@ -24,8 +24,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention, moe
-from .common import (ModelConfig, dense_init, embed_init, rms_norm,
-                     softmax_cross_entropy, swiglu)
+from .common import (ModelConfig, dense_init, embed, embed_init,
+                     gather_fsdp, rms_norm, softmax_cross_entropy, swiglu)
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -127,6 +127,7 @@ def _ffn(cfg: ModelConfig, p, h):
 
 def block_apply(cfg: ModelConfig, p, x, positions, *, causal=True,
                 kv_lengths=None, return_kv=False):
+    p = gather_fsdp(p)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     a = attention.attend(cfg, p["attn"], h, positions, causal=causal,
                          kv_lengths=kv_lengths, return_kv=return_kv)
@@ -141,11 +142,11 @@ def unembed(cfg: ModelConfig, params, x):
     w = params.get("unembed")
     if w is None:
         w = params["embed"].T
-    return x @ w.to(cfg.dtype)
+    return x @ gather_fsdp(w).to(cfg.dtype)
 
 
 def _embed(cfg: ModelConfig, params, tokens):
-    return params["embed"].to(cfg.dtype)[tokens]
+    return embed(cfg, params, tokens)
 
 
 def run_stack(cfg: ModelConfig, blocks, x, positions):
@@ -206,7 +207,7 @@ def prefill(cfg: ModelConfig, params, tokens, *, embeds=None, max_len=None):
     max_len = max_len or s
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = attention.init_cache(cfg, b, max_len, len(params["blocks"]),
-                                 dtype=x.dtype, device=x.device)
+                                 dtype=x.dtype, like=x)
     for i, lp in enumerate(params["blocks"]):
         x, (k, v) = block_apply(cfg, lp, x, positions, return_kv=True)
         cache.k[i, :, :, :s] = k
@@ -218,6 +219,7 @@ def prefill(cfg: ModelConfig, params, tokens, *, embeds=None, max_len=None):
 
 
 def block_decode(cfg: ModelConfig, p, x, layer_cache, lengths):
+    p = gather_fsdp(p)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     a, new_cache = attention.attend_decode(cfg, p["attn"], h, layer_cache,
                                            lengths)

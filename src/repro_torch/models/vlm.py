@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from . import transformer
-from .common import ModelConfig, dense_init, rms_norm, softmax_cross_entropy
+from .common import (ModelConfig, dense_init, embed, gather_fsdp, rms_norm,
+                     softmax_cross_entropy)
 
 D_VIT = 1024   # InternViT-300M hidden size (the frontend stub's output)
 
@@ -39,7 +40,7 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def _project(cfg: ModelConfig, params, patch_embeds):
     """patch_embeds (B, P, D_VIT) -> (B, P, d) at ``cfg.dtype``."""
-    c = params["connector"]
+    c = gather_fsdp(params["connector"])
     h = patch_embeds.to(cfg.dtype) @ c["w1"].to(cfg.dtype)
     return F.gelu(h, approximate="tanh") @ c["w2"].to(cfg.dtype)
 
@@ -47,7 +48,7 @@ def _project(cfg: ModelConfig, params, patch_embeds):
 def embeds(cfg: ModelConfig, params, patch_embeds, tokens):
     """The LM's input: the projected patches, then the tokens' embeddings
     (B, P + S, d)."""
-    txt = params["embed"].to(cfg.dtype)[tokens]
+    txt = embed(cfg, params, tokens)
     return torch.cat([_project(cfg, params, patch_embeds), txt], dim=1)
 
 

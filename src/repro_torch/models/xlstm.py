@@ -19,8 +19,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import transformer
-from .common import (ModelConfig, dense_init, embed_init, rms_norm, silu,
-                     softmax_cross_entropy)
+from .common import (ModelConfig, dense_init, embed, embed_init,
+                     full_like_batch, gather_fsdp, merge_dims, rms_norm,
+                     silu, softmax_cross_entropy, split_dim)
 
 
 def _is_slstm(cfg: ModelConfig, i: int) -> bool:
@@ -55,9 +56,9 @@ def _mlstm_qkvgates(cfg: ModelConfig, p, xm):
     b, s, inner = xm.shape
     h = cfg.n_heads
     pd = inner // h
-    q = (xm @ p["w_q"].to(xm.dtype)).reshape(b, s, h, pd)
-    k = (xm @ p["w_k"].to(xm.dtype)).reshape(b, s, h, pd)
-    v = (xm @ p["w_v"].to(xm.dtype)).reshape(b, s, h, pd)
+    q = split_dim(xm @ p["w_q"].to(xm.dtype), -1, h, pd)
+    k = split_dim(xm @ p["w_k"].to(xm.dtype), -1, h, pd)
+    v = split_dim(xm @ p["w_v"].to(xm.dtype), -1, h, pd)
     logi = (xm @ p["w_i"].to(xm.dtype)).float()
     logf = F.logsigmoid((xm @ p["w_f"].to(xm.dtype)).float() + 1.0)
     return q, k, v, logi, logf, pd
@@ -65,6 +66,7 @@ def _mlstm_qkvgates(cfg: ModelConfig, p, xm):
 
 def mlstm_apply(cfg: ModelConfig, p, x):
     """Parallel form.  x: (B, S, d)."""
+    p = gather_fsdp(p)
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
     xm, z = torch.chunk(h_in @ p["w_up"].to(x.dtype), 2, dim=-1)
     q, k, v, logi, logf, pd = _mlstm_qkvgates(cfg, p, xm)
@@ -84,21 +86,30 @@ def mlstm_apply(cfg: ModelConfig, p, x):
     w = att * dexp
     norm = torch.maximum(torch.abs(w.sum(dim=2)), torch.exp(-m))  # (B,T,H)
     y = torch.einsum("btsh,bshp->bthp", w, v.float())
-    y = (y / norm[..., None]).to(x.dtype).reshape(x.shape[0], s_len, -1)
+    y = merge_dims((y / norm[..., None]).to(x.dtype), -2)
     return x + (y * silu(z)) @ p["w_down"].to(x.dtype)
 
 
-def mlstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+def _full(shape, fill, device, like):
+    if like is not None:
+        return full_like_batch(like, shape, fill, torch.float32)
+    return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+
+def mlstm_state(cfg: ModelConfig, batch: int, device=None,
+                like=None) -> dict:
+    """Zeros (``m``: -1e30); with ``like`` (the batch's tokens), placed
+    by its batch (``common.full_like_batch``)."""
     h, inner = cfg.n_heads, 2 * cfg.d_model
     pd = inner // h
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"c": torch.zeros((batch, h, pd, pd), **f32),
-            "n": torch.zeros((batch, h, pd), **f32),
-            "m": torch.full((batch, h), -1e30, **f32)}
+    return {"c": _full((batch, h, pd, pd), 0.0, device, like),
+            "n": _full((batch, h, pd), 0.0, device, like),
+            "m": _full((batch, h), -1e30, device, like)}
 
 
 def mlstm_decode(cfg: ModelConfig, p, x, st):
     """x: (B, d); st: the layer's state.  Returns (x + out, new state)."""
+    p = gather_fsdp(p)
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
     xm, z = torch.chunk(h_in @ p["w_up"].to(x.dtype), 2, dim=-1)
     q, k, v, logi, logf, pd = _mlstm_qkvgates(cfg, p, xm[:, None, :])
@@ -146,9 +157,9 @@ def slstm_specs() -> dict:
     return specs
 
 
-def slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    z = lambda v: torch.full((batch, cfg.d_model), v, dtype=torch.float32,
-                             device=device)
+def slstm_state(cfg: ModelConfig, batch: int, device=None,
+                like=None) -> dict:
+    z = lambda v: _full((batch, cfg.d_model), v, device, like)
     return {"c": z(0.0), "n": z(1e-6), "h": z(0.0), "m": z(-1e30)}
 
 
@@ -175,6 +186,7 @@ def _slstm_pre(cfg: ModelConfig, p, x):
 
 def slstm_apply(cfg: ModelConfig, p, x):
     """x: (B, S, d): the recurrence over S."""
+    p = gather_fsdp(p)
     pre = _slstm_pre(cfg, p, x)
     st = slstm_state(cfg, x.shape[0], x.device)
     hs = []
@@ -186,6 +198,7 @@ def slstm_apply(cfg: ModelConfig, p, x):
 
 
 def slstm_decode(cfg: ModelConfig, p, x, st):
+    p = gather_fsdp(p)
     st2 = _slstm_cell(p, _slstm_pre(cfg, p, x), st)
     return x + st2["h"].to(x.dtype) @ p["w_down"].to(x.dtype), st2
 
@@ -220,7 +233,7 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def forward(cfg: ModelConfig, params, tokens):
     """tokens: (B, S).  Returns logits (B, S, V)."""
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = embed(cfg, params, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, bp in enumerate(params["blocks"]):
         fn = slstm_apply if _is_slstm(cfg, i) else mlstm_apply
@@ -237,9 +250,10 @@ def loss_fn(cfg: ModelConfig, params, tokens, mask=None):
     return softmax_cross_entropy(logits, tokens[:, 1:], m)
 
 
-def init_cache(cfg: ModelConfig, batch: int, device=None) -> list:
-    return [slstm_state(cfg, batch, device) if _is_slstm(cfg, i)
-            else mlstm_state(cfg, batch, device)
+def init_cache(cfg: ModelConfig, batch: int, device=None,
+               like=None) -> list:
+    return [slstm_state(cfg, batch, device, like) if _is_slstm(cfg, i)
+            else mlstm_state(cfg, batch, device, like)
             for i in range(cfg.n_layers)]
 
 
@@ -255,7 +269,7 @@ def prefill(cfg: ModelConfig, params, tokens):
     """The decode step over the prompt (O(S) time, O(1) state).  Returns
     (the last step's logits (B, V), cache, lengths (B,))."""
     b, s = tokens.shape
-    cache = init_cache(cfg, b, tokens.device)
+    cache = init_cache(cfg, b, like=tokens)
     lengths = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
     for t in range(s):
         logits, cache, lengths = decode_step(cfg, params, cache,
@@ -266,7 +280,7 @@ def prefill(cfg: ModelConfig, params, tokens):
 def decode_step(cfg: ModelConfig, params, cache, token, lengths):
     """One decode step.  Returns (logits (B, V), the new cache (a list of
     new state dicts), lengths + 1)."""
-    x = params["embed"].to(cfg.dtype)[token]
+    x = embed(cfg, params, token)
     new = []
     for i, bp in enumerate(params["blocks"]):
         fn = slstm_decode if _is_slstm(cfg, i) else mlstm_decode

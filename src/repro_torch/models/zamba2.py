@@ -16,7 +16,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention, mamba2, transformer
-from .common import ModelConfig, embed_init, rms_norm, softmax_cross_entropy
+from .common import (ModelConfig, embed, embed_init, rms_norm,
+                     softmax_cross_entropy)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None, *,
@@ -57,7 +58,7 @@ def _mamba_block(cfg: ModelConfig, lp, x):
 
 def forward(cfg: ModelConfig, params, tokens):
     """tokens: (B, S).  Returns logits (B, S, V)."""
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = embed(cfg, params, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -84,10 +85,12 @@ def loss_fn(cfg: ModelConfig, params, tokens, mask=None):
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
-               dtype=None) -> dict:
-    return {"ssm": mamba2.init_ssd_state(cfg, batch, cfg.n_layers, device),
+               dtype=None, like=None) -> dict:
+    return {"ssm": mamba2.init_ssd_state(cfg, batch, cfg.n_layers, device,
+                                         like=like),
             "kv": attention.init_cache(cfg, batch, max_len, len(_groups(cfg)),
-                                       dtype=dtype, device=device)}
+                                       dtype=dtype, device=device,
+                                       like=like)}
 
 
 def cache_specs(cfg: ModelConfig) -> dict:
@@ -100,10 +103,10 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int):
     and each site's shared-attention K/V (padded to ``max_len``).
 
     Returns (last-token logits (B, V), cache, lengths (B,))."""
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = embed(cfg, params, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = init_cache(cfg, b, max_len, x.device, x.dtype)
+    cache = init_cache(cfg, b, max_len, dtype=x.dtype, like=x)
     for site, (lo, hi) in enumerate(_groups(cfg)):
         for li in range(lo, hi):
             lp = params["mamba"][li]
@@ -123,7 +126,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int):
 def decode_step(cfg: ModelConfig, params, cache, token, lengths):
     """One decode step.  token: (B,); lengths: (B,).  The cache is
     updated in place.  Returns (logits (B, V), cache, lengths + 1)."""
-    x = params["embed"].to(cfg.dtype)[token]
+    x = embed(cfg, params, token)
     kv = cache["kv"]
     for site, (lo, hi) in enumerate(_groups(cfg)):
         for li in range(lo, hi):

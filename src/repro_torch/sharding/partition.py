@@ -265,3 +265,54 @@ def place(t, sh: NamedSharding):
     one-rank mesh), so no memory beyond the tensor's own is taken."""
     local = t[local_slices(t.shape, sh)]
     return from_local(local.contiguous(), sh, tuple(t.shape))
+
+
+def placed_bytes(t) -> int:
+    """Bytes of this rank's shard of ``t``: a ``DTensor``'s local tensor,
+    a plain tensor whole (0 for ``None``)."""
+    if t is None:
+        return 0
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.to_local()
+    return t.numel() * t.element_size()
+
+
+def register_rules() -> None:
+    """The port's ``DTensor`` sharding rules (idempotent): the
+    hand-written kernels' operators (each ``ops.register_dtensor_rules``)
+    and an elementwise rule for each operator of :data:`POINTWISE`."""
+    from ..kernels.flash_attention import ops as aops
+    from ..kernels.wavefront_matmul import ops as mops
+    aops.register_dtensor_rules()
+    mops.register_dtensor_rules()
+    if _RULES:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    for name in POINTWISE:
+        op = getattr(torch.ops.aten, name).default
+        register_sharding(op)(_pointwise(len(op._schema.returns)))
+    _RULES.append(True)
+
+
+def _pointwise(n_out: int):
+    """The rule of an elementwise operator whose tensor operands and
+    ``n_out`` outputs all have one shape: all sharded alike on any one
+    dim, or all replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def rule(*args, **kwargs):
+        ts = [hasattr(a, "tensor_meta") for a in args]
+        ndim = next(a.ndim for a, t in zip(args, ts) if t)
+        out = []
+        for p in [Replicate()] + [Shard(i) for i in range(ndim)]:
+            out.append(([p] * n_out, [p if t else None for t in ts]))
+        return out
+    return rule
+
+
+#: elementwise operators DTensor has no rule for (the backward of
+#: ``softplus``, the SSD's step size, and the mLSTM's ``logsigmoid``)
+POINTWISE = ("softplus_backward", "log_sigmoid_forward",
+             "log_sigmoid_backward")
+_RULES: list = []

@@ -13,10 +13,14 @@ against the JAX reference's, on the CPU.
 * every architecture's parameter count at full width equals the
   reference's (``jax.eval_shape`` against ``convert._layout``: nothing is
   allocated);
-* the CLI writes a record a mesh with the reference's keys, its bytes
-  and FLOPs those of ``build_cell`` and ``measure`` in this process;
-* each kernel wrapper hands a ``meta`` tensor to its plain version,
-  forward and backward, and counts no launch.
+* the CLI writes a record a mesh with the reference's keys: collective
+  bytes and counts by the reference's five kinds, temporary bytes, one
+  device's FLOPs (together at least the whole step's, as ``measure``
+  counts it unpartitioned on the ``FakeMesh``) and argument bytes those of
+  ``build_cell`` in this process;
+* the LM kernels' operators take their fake implementations on a
+  ``meta`` tensor, forward and backward, the eGPU kernels their plain
+  versions, and no launch is counted.
 """
 import json
 import os
@@ -239,19 +243,35 @@ def test_cli_writes_reference_records(tmp_path):
                                       "temp_bytes", "generated_code_bytes"}
         assert set(rec["cost"]) == {"flops", "bytes_accessed",
                                     "transcendentals"}
-        assert set(rec["collectives"]) == {"error"}
+        coll = rec["collectives"]
+        assert set(coll) == {"bytes", "count", "total_bytes"}
+        assert set(coll["bytes"]) == set(coll["count"]) == set(
+            dryrun._COLLECTIVES)
+        assert coll["total_bytes"] == sum(coll["bytes"].values()) > 0
+        assert coll["count"]["all-gather"] > 0
         assert rec["chips"] == (512 if name == "2x16x16" else 256)
         cell = specs.build_cell(arch, shape, mesh)
-        m = dryrun.measure(cell)
+        whole = dryrun.measure(cell)      # the FakeMesh: unpartitioned
         assert rec["params"] == cell.model_params_bytes == \
             _reference_count(C.get(arch))
-        for k in ("argument_bytes", "output_bytes"):
-            assert rec["memory"][k] == m["memory"][k]
-        assert rec["cost"]["flops"] == m["cost"]["flops"]
-        assert rec["memory"]["temp_bytes"] is None
+        assert rec["memory"]["argument_bytes"] == \
+            whole["memory"]["argument_bytes"] == specs.argument_bytes(cell)
+        assert 0 < rec["memory"]["output_bytes"] <= \
+            whole["memory"]["output_bytes"]
+        # one device's FLOPs: its shards' products, all of them together
+        # at least the whole step's
+        assert 0 < rec["cost"]["flops"] < whole["cost"]["flops"] <= \
+            rec["cost"]["flops"] * rec["chips"]
+        assert isinstance(rec["memory"]["temp_bytes"], int)
+        assert rec["memory"]["temp_bytes"] > 0
+        assert rec["memory"]["generated_code_bytes"] is None
 
 
 def test_kernel_wrappers_take_the_plain_route_on_meta():
+    """The LM kernels' operators take their fake implementations on a
+    ``meta`` tensor (no plain version's product runs), the eGPU kernels
+    their plain versions; nothing is launched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.kernels.dot_product import ops as dops
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.wavefront_alu import ops as wops
@@ -264,6 +284,15 @@ def test_kernel_wrappers_take_the_plain_route_on_meta():
                         wops.wavefront_alu.launches,
                         dops.dot_product.launches)
     before = counters()
+    seen = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    ops = Ops()
+    ops.__enter__()
     a = torch.empty((3, 200, 64), dtype=torch.bfloat16, requires_grad=True,
                     **meta)
     b = torch.empty((3, 64, 96), dtype=torch.bfloat16, requires_grad=True,
@@ -280,6 +309,11 @@ def test_kernel_wrappers_take_the_plain_route_on_meta():
     assert o.shape == q.shape and o.device.type == "meta"
     o.sum().backward()
     assert k.grad.shape == k.shape
+    ops.__exit__(None, None, None)
+    for op in ("flash_attention", "flash_attention_bwd", "wavefront_matmul",
+               "wavefront_matmul_bwd"):
+        assert f"repro_torch.{op}.default" in seen, (op, seen)
+    assert not any(op.startswith(("aten.bmm", "aten.mm")) for op in seen)
     x = torch.empty((16, 8), **meta)
     assert wops.wavefront_alu(x, x, x, torch.ones((2,), dtype=torch.int32,
                                                   **meta), "add").shape \

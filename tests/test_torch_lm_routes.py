@@ -32,6 +32,25 @@ from repro_torch.kernels.wavefront_matmul import ops as mops  # noqa: E402
 BF, F32 = torch.bfloat16, torch.float32
 
 
+@pytest.fixture(autouse=True)
+def pinned():
+    """The process-wide torch state the models' arithmetic below depends
+    on, pinned for each test and restored after it (a test file that ran
+    before in the same worker may have left it otherwise): one intra-op
+    thread, float32 as the default type, the highest float32 matmul
+    precision.  Returns the state found, for the failure messages."""
+    found = {"threads": torch.get_num_threads(),
+             "default_dtype": torch.get_default_dtype(),
+             "matmul_precision": torch.get_float32_matmul_precision()}
+    torch.set_num_threads(1)
+    torch.set_default_dtype(torch.float32)
+    torch.set_float32_matmul_precision("highest")
+    yield found
+    torch.set_num_threads(found["threads"])
+    torch.set_default_dtype(found["default_dtype"])
+    torch.set_float32_matmul_precision(found["matmul_precision"])
+
+
 def _z(*shape, dtype=BF):
     return torch.zeros(shape, dtype=dtype)
 
@@ -168,9 +187,9 @@ def hilo_attention(q, k, v, lengths, causal, tile=64, split=True):
     kf = k.float().repeat_interleave(g, 1)
     vf = v.float().repeat_interleave(g, 1)
     scale = 1.0 / math.sqrt(d)
-    m = torch.full((b, h, sq, 1), -1e30)
-    l = torch.zeros((b, h, sq, 1))
-    acc = torch.zeros((b, h, sq, d))
+    m = torch.full((b, h, sq, 1), -1e30, dtype=F32)
+    l = torch.zeros((b, h, sq, 1), dtype=F32)
+    acc = torch.zeros((b, h, sq, d), dtype=F32)
     qpos = torch.arange(sq)[:, None]
     for k0 in range(0, sk, tile):
         keys = torch.arange(k0, min(k0 + tile, sk))
@@ -211,15 +230,16 @@ def _off(got, exp):
 @pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
     (2, 3, 1, 128, 128, 64, True), (2, 6, 2, 96, 200, 64, True),
     (2, 4, 2, 100, 300, 128, True), (2, 2, 2, 128, 256, 32, False)])
-def test_hilo_pv_within_bf16_tolerance(seed, b, h, kv, sq, sk, d, causal):
+def test_hilo_pv_within_bf16_tolerance(seed, b, h, kv, sq, sk, d, causal,
+                                      pinned):
     q, k, v, lens = _qkv(seed, b, h, kv, sq, sk, d)
     exp = fref.mha_ref(q, k, v, lens, causal).to(BF)
     got = hilo_attention(q, k, v, lens, causal)
-    assert _off(got, exp) == 0
+    err = lambda x: float((x.float() - exp.float()).abs().max())
+    assert _off(got, exp) == 0, (err(got), pinned)
     # one bf16 P is visibly coarser than the pair
     one = hilo_attention(q, k, v, lens, causal, split=False)
-    err = lambda x: float((x.float() - exp.float()).abs().max())
-    assert err(one) >= err(got)
+    assert err(one) >= err(got), (err(one), err(got), pinned)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -337,8 +357,8 @@ def hilo_attention_bwd(q, k, v, o, do, lengths, causal, split_p=True,
             lv = lv & (keys[None, :] <= qpos + (sk - sq))
         return lv
 
-    m = torch.full((b, h, sq, 1), -1e30)
-    l = torch.zeros((b, h, sq, 1))
+    m = torch.full((b, h, sq, 1), -1e30, dtype=F32)
+    l = torch.zeros((b, h, sq, 1), dtype=F32)
     for keys in tiles:
         lv = live(keys)
         s = torch.where(lv, qf @ kf[:, :, keys].transpose(-1, -2) * scale2,
@@ -350,9 +370,9 @@ def hilo_attention_bwd(q, k, v, o, do, lengths, causal, split_p=True,
     lse2 = torch.where(l > 0, m + torch.log2(l), 0.0)
     delta = (dof * o.float()).sum(-1, keepdim=True)
 
-    dq = torch.zeros((b, h, sq, d))
-    dk = torch.zeros((b, kv, sk, d))
-    dv = torch.zeros((b, kv, sk, d))
+    dq = torch.zeros((b, h, sq, d), dtype=F32)
+    dk = torch.zeros((b, kv, sk, d), dtype=F32)
+    dv = torch.zeros((b, kv, sk, d), dtype=F32)
     for keys in tiles:
         lv = live(keys)
         s = qf @ kf[:, :, keys].transpose(-1, -2)
