@@ -91,6 +91,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``simt`` kernel on the same bf16 inputs), the plain version and a
    library call, with the bound; kernels and library calls by device
    time (launches captured in a CUDA graph), the plain version eagerly;
+   then ``flash_attention_partial`` (the float32 output and row
+   log-sum-exp of decode's attention, ``run_route(..., partial=True)``):
+   both its routes (``split``, ``simt``) against ``mha_ref_lse`` at
+   every family's decode shape (granite, zamba2, seamless-m4t's self-
+   and cross-attention, internvl2; bf16, ragged lengths, a row with no
+   live key; float32 at granite's), ``o`` within ``ops.TOLERANCE``,
+   ``lse`` within :data:`LSE_RTOL` relative (the cases where ``o`` in
+   the input's type is ``flash_attention``'s on the same route bit for
+   bit are counted); the merges of
+   2, 4 and 16 key shards (``ops.merge_partials``) against the
+   whole-cache ``flash_attention`` within ``ops.TOLERANCE``; and timed
+   at granite's decode shape beside its plain version, the bound and
+   the library call that gives both outputs
+   (``aten._scaled_dot_product_efficient_attention`` with
+   ``compute_log_sumexp``, :func:`partial_library`);
 6. LM training (``repro_torch.launch.train``), after the serve's model is
    freed: the backward kernels against their plain versions (the
    attention backward ``dq`` + ``dkdv``, each route that takes the case,
@@ -176,7 +191,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    the (1, 1) dry run's ``argument_bytes + temp_bytes`` within
    ``PEAK_BOUND``; that dry run's FLOPs beside phase 6's 6 x N_active x
    tokens, not below it; granite's decode cache at phase 5's size placed
-   by ``cache_specs``, its bytes held the same way; xlstm-350m's
+   by ``cache_specs``, its bytes held the same way; granite's decode
+   step at that size (the prompt's 512 positions of the cache random,
+   :data:`MESH_DECODE_STEPS` greedy steps) unpartitioned, then as the
+   partitioned program on the one-rank mesh (``specs.run_step``), its
+   counters zeroed just before and read just after: every decode
+   attention on ``flash_attention_partial``'s ``split`` route and none
+   on ``flash_attention``, every expert GEMM on ``small_m``, the tokens
+   equal to the unpartitioned steps'; xlstm-350m's
    parameters and AdamW state saved from the mesh and restored with
    ``shardings`` onto it, every leaf bit for bit, seconds and bytes
    printed; then ``examples/egpu_benchmarks_torch.py`` and
@@ -1754,6 +1776,197 @@ def check_lm_kernels(dev) -> None:
         f"zero; poisoned tails change no bit); launches by route {moved}")
 
 
+#: the partial output's log-sum-exp against its plain version: |got -
+#: plain| <= LSE_RTOL * max(1, |plain|), and -inf exactly where no key
+#: is live (both sum the same exponentials in float32, in other orders)
+LSE_RTOL = 1e-5
+#: key shards merged on the card against the whole-cache kernel
+MERGE_SHARDS = (2, 4, 16)
+
+
+def partial_cases(dev) -> dict:
+    """``flash_attention_partial``'s inputs at every family's decode
+    shape (phases 5 and 7's serves: 8 requests, bf16; seamless's
+    cross-attention over its 512 frames; float32 at granite's too),
+    lengths ragged in [0, T] with one row of no live key and one whole."""
+    import torch
+    from repro_torch import configs
+    g = torch.Generator(device=dev).manual_seed(17)
+    b = SERVE["requests"]
+    shapes = {SERVE["arch"]: SERVE["max_len"], **{
+        n: t for n, t in FAMILY_SERVES.items() if n != "xlstm-350m"}}
+    out = {}
+    for name, t in shapes.items():
+        cfg = configs.get(name)
+        calls = [("self", t)] + ([("cross", SERVE["prompt_len"])]
+                                 if cfg.family == "encdec" else [])
+        dts = [torch.bfloat16] + ([torch.float32] if name == SERVE["arch"]
+                                  else [])
+        for call, keys in calls:
+            for dt in dts:
+                rn = lambda *shape: torch.randn(shape, generator=g,
+                                                device=dev).to(dt)
+                lens = torch.randint(0, keys + 1, (b,), generator=g,
+                                     device=dev, dtype=torch.int32)
+                lens[0], lens[1] = 0, keys
+                out[(name, call, str(dt).split(".")[-1])] = (
+                    rn(b, cfg.n_heads, 1, cfg.hd),
+                    rn(b, cfg.kv_heads, keys, cfg.hd),
+                    rn(b, cfg.kv_heads, keys, cfg.hd), lens)
+    return out
+
+
+def lse_within(got, exp) -> float:
+    """Max relative error of a log-sum-exp; raises beyond
+    :data:`LSE_RTOL` or where -inf is not exactly where it should be."""
+    import torch
+    dead = torch.isinf(exp)
+    if not torch.equal(torch.isinf(got), dead) or bool((got[dead] > 0).any()):
+        raise AssertionError("lse is not -inf exactly where no key is live")
+    err = ((got - exp).abs() / exp.abs().clamp_min(1.0))[~dead]
+    worst = float(err.max()) if err.numel() else 0.0
+    if worst > LSE_RTOL:
+        raise AssertionError(f"lse relative error {worst} beyond {LSE_RTOL}")
+    return worst
+
+
+def check_partial(dev) -> dict:
+    """``flash_attention_partial``: both routes against ``mha_ref_lse`` at
+    :func:`partial_cases` (and whether its ``o`` in the input's type is
+    ``flash_attention``'s on the same route bit for bit), the merges of
+    :data:`MERGE_SHARDS` key shards against the whole-cache
+    ``flash_attention``; then timed at granite's decode shape.  The
+    kernels line's row (its launches filled in by phase 9's partitioned
+    decode); the launches made here are taken back off the counters."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    fp = fops.flash_attention_partial
+    counters = lm_counters()["flash_attention"]
+    before = (fp.launches, dict(fp.by_route), counters.launches,
+              dict(counters.by_route))
+    cases, worst, lse_worst = [], 0.0, 0.0
+    for (name, call, dt), (q, k, v, lens) in partial_cases(dev).items():
+        exp_o, exp_lse = fref.mha_ref_lse(q, k, v, lens)
+        for r in fops.PARTIAL_ROUTES:
+            try:
+                o, lse = fops.run_route(r, q, k, v, lens, False,
+                                        partial=True)
+                err = within(o, exp_o, fops.TOLERANCE[torch.float32])
+                lerr = lse_within(lse, exp_lse)
+                same = torch.equal(o.to(q.dtype), fops.run_route(
+                    r, q, k, v, lens, False))
+            except AssertionError as e:
+                raise AssertionError(f"flash_attention_partial {r} {name} "
+                                     f"{call} {dt} {tuple(q.shape)} "
+                                     f"{tuple(k.shape)}: {e}") from None
+            worst, lse_worst = max(worst, err), max(lse_worst, lerr)
+            cases.append({"call": f"{name} {call} {dt}", "route": r,
+                          "routed": r == fops.route(q, k, v),
+                          "shape": [list(q.shape), list(k.shape)],
+                          "max_abs_err": err, "lse_max_rel_err": lerr,
+                          "bits_as_flash_attention": same})
+    q, k, v, lens = partial_cases(dev)[(SERVE["arch"], "self", "bfloat16")]
+    whole = fops.flash_attention(q, k, v, lens, causal=False)
+    merges = {}
+    for n in MERGE_SHARDS:
+        t = k.shape[2] // n
+        parts = [fops.flash_attention_partial(
+            q, k[:, :, i * t:(i + 1) * t], v[:, :, i * t:(i + 1) * t],
+            (lens - i * t).clamp(0, t)) for i in range(n)]
+        merged = fops.merge_partials(torch.stack([p[0] for p in parts]),
+                                     torch.stack([p[1] for p in parts]))
+        try:
+            merges[n] = within(merged.to(q.dtype), whole,
+                               fops.TOLERANCE[q.dtype])
+        except AssertionError as e:
+            raise AssertionError(f"the merge of {n} key shards: {e}"
+                                 ) from None
+    torch.cuda.synchronize()
+    # the bound: q read, the live keys' K and V read, o and lse written
+    b, h, _, d = q.shape
+    kv = k.shape[1]
+    live = int(lens.clamp(max=k.shape[2]).sum())
+    nbytes = q.numel() * q.element_size() + 2 * kv * live * d * \
+        k.element_size() + 4 * (q.numel() + b * h) + 4 * lens.numel()
+    flops = 4 * h * d * live
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+    ms = graph_ms(lambda: fops.flash_attention_partial(q, k, v, lens))
+    plain_ms = time_ms(lambda: fref.mha_ref_lse(q, k, v, lens), reps=20,
+                       rounds=3)
+    lib, lib_err = partial_library(q, k, v, lens)
+    try:
+        library_ms, lib_timing = graph_ms(lib), "CUDA graph"
+    except RuntimeError as refused:
+        torch.cuda.synchronize()
+        library_ms = time_ms(lib)
+        lib_timing = (f"eager, CUDA events (does not capture: "
+                      f"{str(refused).splitlines()[0][:80]})")
+    ms = statistics.median([ms, graph_ms(
+        lambda: fops.flash_attention_partial(q, k, v, lens))])
+    fp.launches, fp.by_route = before[0], before[1]
+    counters.launches, counters.by_route = before[2], before[3]
+    row = {"name": "flash_attention_partial", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+           "launches": 0, "routes": dict.fromkeys(fops.PARTIAL_ROUTES, 0),
+           "paths": {}, "max_abs_err": worst, "lse_max_rel_err": lse_worst,
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_b, t_f) * 1e3,
+           "bound_by": "bytes" if t_b >= t_f else "operations",
+           "library_ms": library_ms,
+           "library": "aten._scaled_dot_product_efficient_attention "
+                      "(compute_log_sumexp; K, V expanded to H heads and "
+                      "the lengths a bias, made before timing)",
+           "library_timing": lib_timing, "library_max_abs_err": lib_err,
+           "kernel_route": fops.route(q, k, v),
+           "shape": [list(q.shape), list(k.shape)],
+           "merges_max_abs_err": merges, "cases": cases}
+    log(f"[lm-partial] flash_attention_partial: {len(cases)} cases, both "
+        f"routes at every family's decode shape within "
+        f"{fops.TOLERANCE[torch.float32]} of mha_ref_lse (max abs err "
+        f"{worst:.3g}), lse within {LSE_RTOL} relative (max {lse_worst:.3g}"
+        f"); o in the input's type bit for bit flash_attention's on the "
+        f"same route in {sum(c['bits_as_flash_attention'] for c in cases)} "
+        f"of {len(cases)} cases; merges "
+        f"of {list(merges)} key shards within {fops.TOLERANCE[q.dtype]} of "
+        f"the whole-cache kernel (max abs err {merges})")
+    log(f"[lm-timing] flash_attention_partial decode {row['shape']}: "
+        f"{row['kernel_route']} {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}), library "
+        f"{library_ms:.5f} ms ({lib_timing}; o and lse of its live rows "
+        f"within {lib_err} of the kernel's)")
+    return row
+
+
+def partial_library(q, k, v, lens):
+    """The one PyTorch call that gives decode's attention and its row
+    log-sum-exp, as a yardstick for ``flash_attention_partial`` (the port
+    never calls it): ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, K and V expanded to the H query heads and the
+    lengths an additive bias (-inf past each length; its rows padded to 16
+    keys for the kernel's alignment), all made before the call is timed.
+    Returns the call and the largest gap of its ``o`` and ``lse`` from
+    the partial kernel's over the rows with a live key."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    b, h, sq, _ = q.shape
+    g, sk = h // k.shape[1], k.shape[2]
+    ke, ve = (t.repeat_interleave(g, 1).contiguous() for t in (k, v))
+    pad = -(-sk // 16) * 16
+    dead = torch.arange(pad, device=q.device)[None, :] >= lens[:, None]
+    bias = torch.zeros((b, h, sq, pad), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(dead[:, None, None, :], float("-inf"))
+    bias = bias[..., :sk]
+    lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, ke, ve, bias, True)
+    out = lib()
+    o, lse = fops.flash_attention_partial(q, k, v, lens)
+    live = lens > 0
+    gap = max(float((out[0].float() - o)[live].abs().max()),
+              float((out[1][..., :sq] - lse)[live].abs().max()))
+    return lib, gap
+
+
 # ---------------------------------------------------------------------------
 # phase 6: LM training (granite-moe-3b-a800m, full width)
 # ---------------------------------------------------------------------------
@@ -3050,6 +3263,8 @@ PREDICT_ARGS = ("--mesh", "1x1", "--batch", str(TRAIN["batch"]), "--seq",
 #: the bound of the card's peak against that prediction, |peak /
 #: predicted - 1| (PERF.md says how it was set)
 PEAK_BOUND = 0.05
+#: greedy decode steps of phase 9's partitioned decode
+MESH_DECODE_STEPS = 4
 #: the examples run on the card at their default sizes
 EXAMPLES = ("egpu_benchmarks_torch", "fleet_throughput_torch")
 
@@ -3323,6 +3538,105 @@ def mesh_decode_cache(dev, gpu: str, mesh) -> int:
     return want
 
 
+def mesh_decode(dev, gpu: str, mesh) -> dict:
+    """granite's decode step at phase 5's size, unpartitioned and then as
+    the partitioned program on the one-rank mesh (the cache placed on
+    ``seq``, so every attention merges its one key shard through
+    ``flash_attention_partial``), :data:`MESH_DECODE_STEPS` greedy steps
+    each from the same state; the partitioned run's counters zeroed just
+    before and read just after, its tokens against the unpartitioned
+    run's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import api
+    from repro_torch.sharding import partition
+    s = SERVE
+    b = s["requests"]
+    cell = specs.build_cell(s["arch"], "decode", mesh,
+                            shape=configs.ShapeSpec("phase5", s["max_len"],
+                                                    b, "decode"))
+    cfg = cell.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = serve.build_model(cfg, s["seed"], dev)
+    g = torch.Generator(device=dev).manual_seed(s["seed"])
+    cache = api.init_cache(cfg, b, s["max_len"], device=dev)
+    for t in cache:
+        t[..., :s["prompt_len"], :] = torch.randn(
+            t[..., :s["prompt_len"], :].shape, generator=g,
+            device=dev).to(t.dtype)
+    token = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
+                          dtype=torch.int32)
+    lengths = torch.full((b,), s["prompt_len"], dtype=torch.int32,
+                         device=dev)
+    active = torch.ones((b,), dtype=torch.int32, device=dev)
+    fresh = lambda: type(cache)(*(t.clone() for t in cache))
+
+    def run(step, args, again):
+        toks, logits = [], None
+        for _ in range(MESH_DECODE_STEPS):
+            logits, c, lens = step(args)
+            tok = _whole(logits).argmax(-1).to(torch.int32)
+            toks.append(tok)
+            args = again(args, c, tok, lens)
+        return torch.stack(toks), _whole(logits)
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        plain, plain_logits = run(
+            lambda a: cell.step_fn(*a),
+            (model, fresh(), token, lengths, active),
+            lambda a, c, tok, lens: (a[0], c, tok, lens, a[4]))
+        torch.cuda.synchronize(dev)
+        plain_s = time.perf_counter() - t0
+        dargs = specs.distribute(cell, args=(model, fresh(), token, lengths,
+                                             active), local=specs.view_local)
+        zero_lm_counters()
+        fops.flash_attention_partial.launches = 0
+        fops.flash_attention_partial.by_route = dict.fromkeys(
+            fops.PARTIAL_ROUTES, 0)
+        t0 = time.perf_counter()
+        got, got_logits = run(
+            lambda a: specs.run_step(cell, a), dargs,
+            lambda a, c, tok, lens: (a[0], c, partition.place(
+                tok, cell.in_shardings[2]), lens, a[4]))
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+    routes = route_counts()
+    partial = dict(fops.flash_attention_partial.by_route)
+    steps = MESH_DECODE_STEPS
+    want = {"flash_attention": dict.fromkeys(fops.ROUTES, 0),
+            "wavefront_matmul": {"wgmma": 0, "small_m": 3 * cfg.n_layers *
+                                 steps, "simt": 0}}
+    want_partial = {"split": cfg.n_layers * steps, "simt": 0}
+    if routes != want or partial != want_partial:
+        raise AssertionError(f"partitioned decode launches {routes}, "
+                             f"flash_attention_partial {partial}; expected "
+                             f"{want}, {want_partial}")
+    if not torch.equal(got, plain):
+        raise AssertionError(f"the partitioned decode's tokens "
+                             f"{got.tolist()} are not the unpartitioned "
+                             f"steps' {plain.tolist()}")
+    if not bool(torch.isfinite(got_logits.float()).all()):
+        raise AssertionError("the partitioned decode's logits are not "
+                             "finite")
+    diff = float((got_logits.float() - plain_logits.float()).abs().max())
+    same = torch.equal(got_logits.view(torch.int16),
+                       plain_logits.view(torch.int16))
+    log(f"[mesh] {cfg.name} partitioned decode ({b} requests, cache "
+        f"{s['max_len']} on seq, {steps} greedy steps over the one-rank "
+        f"mesh): tokens equal to the unpartitioned steps' {plain.tolist()}"
+        f"; last logits max abs diff {diff:.3g} (bit for bit: {same}); "
+        f"unpartitioned "
+        f"{plain_s:.3f} s, partitioned {step_s:.3f} s; launches "
+        f"flash_attention_partial {partial}, {routes} ({gpu})")
+    del model, cache, dargs
+    return {"routes": routes, "partial": partial, "logits_diff": diff,
+            "logits_bits_equal": same}
+
+
 def mesh_elastic(dev, gpu: str, mesh, tmp: pathlib.Path) -> dict:
     """xlstm-350m's parameters and AdamW state saved from the card's mesh
     and restored with ``shardings`` onto it, every leaf bit for bit."""
@@ -3428,6 +3742,9 @@ def mesh_phase(dev, gpu: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         cache_bytes = mesh_decode_cache(dev, gpu, mesh)
+        decoded = mesh_decode(dev, gpu, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
         elastic = mesh_elastic(dev, gpu, mesh, tmp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3440,7 +3757,7 @@ def mesh_phase(dev, gpu: str) -> dict:
             p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     return {**trained, "cache_bytes": cache_bytes, "elastic": elastic,
-            "examples": examples, "dryrun": recs}
+            "examples": examples, "dryrun": recs, "decode": decoded}
 
 
 def add_path(row: dict, path: str, routes: dict) -> None:
@@ -3638,6 +3955,7 @@ def main(argv) -> int:
         k["paths"] = {name: p[0][k["name"]] for name, p in paths.items()}
 
     check_lm_kernels(dev)
+    partial = check_partial(dev)
     serve_reference(dev)
     full = serve_full(dev, gpu)
     kernels += lm_kernels_at_serve(dev, full)
@@ -3709,6 +4027,13 @@ def main(argv) -> int:
     add_path(mm_bwd, path, meshed["bwd"]["wavefront_matmul"])
     add_path(attn, path, meshed["routes"]["flash_attention"])
     add_path(bwd, path, meshed["bwd"]["flash_attention"])
+    # and its partitioned decode (counted from 0 around it)
+    path = f"decode-mesh {SERVE['arch']}"
+    add_path(mm, path, meshed["decode"]["routes"]["wavefront_matmul"])
+    partial.update(launches=0, paths={},
+                   routes=dict.fromkeys(partial["routes"], 0))
+    add_path(partial, path, meshed["decode"]["partial"])
+    kernels.append(partial)
 
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

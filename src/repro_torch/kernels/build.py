@@ -65,7 +65,8 @@ _SIGNATURES = {
                           "lm_wavefront_matmul_wgmma": _GEMM + [_P]},
                          TMA_FLAGS),
     "flash_attention": ({"lm_flash_attention":
-                             _ATTN + [_I, _F, _I, _I, _P, _P, _P],
+                             [_P] * 6 + [_LL] * 6
+                             + [_I, _F, _I, _I, _P, _P, _P],
                          "lm_flash_attention_wgmma": _ATTN + [_I, _F, _P]},
                         TMA_FLAGS),
     "flash_attention_bwd": ({"lm_flash_attention_bwd_dq":

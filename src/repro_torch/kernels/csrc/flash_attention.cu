@@ -41,6 +41,14 @@
 //   and sum by warp shuffles across the 16 threads of a row group, P
 //   through shared memory, then O += P V.  It takes float32, head_dim not
 //   a multiple of 16 and decode's rows.
+//
+// The partial output (lm_flash_attention given an ``lse`` pointer): decode's
+// rows (at most 16 per KV head) on the "simt" or "split" route, the output
+// in float32 and each row's log-sum-exp m + log(l) beside it (-inf and a
+// zero output for a row with no live key), so that attention over a cache
+// split by key ranges merges exactly: o = sum_r exp(lse_r - M) o_r /
+// sum_r exp(lse_r - M) with M = max_r lse_r.  The kernel is the same
+// template; only the output's type and the extra store differ.
 #include "hopper.cuh"
 #include "hopper_wgmma.cuh"
 
@@ -92,13 +100,15 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // partial (m, l, acc) rows to ``part``, and the last block of its (batch,
 // KV head) to arrive (``counters``, reset by that block) combines the
 // partials in the order z = 0, 1, ..., so the result does not depend on
-// which block finishes first.
-template <typename T, int TQ>
+// which block finishes first.  TO: the output's type (T, or float for the
+// partial output); ``lse`` (may be null): each row's m + log(l).
+template <typename T, typename TO, int TQ>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int32_t* __restrict__ lengths,
-                       T* __restrict__ o, int64_t heads, int64_t kv_heads,
+                       TO* __restrict__ o, float* __restrict__ lse,
+                       int64_t heads, int64_t kv_heads,
                        int64_t sq, int64_t sk, int d, int causal,
                        float scale, int split_tiles, float* __restrict__ part,
                        int32_t* __restrict__ counters) {
@@ -261,6 +271,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < kOutColsPerThread; ++j)
           if (c + 16 * j < d) out[j] += __ldcg(pr + 2 + c + 16 * j) * w;
       }
+      m[i] = mx;
       l[i] = sum;
 #pragma unroll
       for (int j = 0; j < kOutColsPerThread; ++j) acc[i][j] = out[j];
@@ -273,28 +284,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t row = row0 + r + 16 * i;
     if (row >= rows) continue;
     const int64_t h = kvh * g + row / sq, pos = row % sq;
-    T* orow = o + ((b * heads + h) * sq + pos) * d;
+    TO* orow = o + ((b * heads + h) * sq + pos) * d;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kOutColsPerThread; ++j) {
       const int dd = c + 16 * j;
-      if (dd < d) orow[dd] = from_f32<T>(acc[i][j] * inv);
+      if (dd < d) orow[dd] = from_f32<TO>(acc[i][j] * inv);
     }
+    if (lse != nullptr && c == 0)
+      lse[(b * heads + h) * sq + pos] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
-template <typename T, int TQ>
+template <typename T, typename TO, int TQ>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* o, long long batch, long long heads, long long kv_heads,
-           long long sq, long long sk, int d, int causal, float scale,
-           int split_tiles, void* part, void* counters, cudaStream_t stream) {
+           void* o, float* lse, long long batch, long long heads,
+           long long kv_heads, long long sq, long long sk, int d, int causal,
+           float scale, int split_tiles, void* part, void* counters,
+           cudaStream_t stream) {
   auto smem_for = [](int dim) {
     return sizeof(float) *
            ((size_t)(TQ + 2 * kTileK) * (dim + 1) + TQ * (kTileK + 1));
   };
   static bool opted_in = false;     // above 48 KB only after opting in
   if (!opted_in) {
-    cudaFuncSetAttribute(flash_attention_kernel<T, TQ>,
+    cudaFuncSetAttribute(flash_attention_kernel<T, TO, TQ>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem_for(kMaxHeadDim));
     opted_in = true;
@@ -306,27 +321,36 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       split_tiles > 0 ? (unsigned)((tiles + split_tiles - 1) / split_tiles) : 1;
   const dim3 grid((unsigned)((rows + TQ - 1) / TQ),
                   (unsigned)(batch * kv_heads), splits);
-  flash_attention_kernel<T, TQ><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)lengths, (T*)o,
-      heads, kv_heads, sq, sk, d, causal, scale, split_tiles, (float*)part,
-      (int32_t*)counters);
+  flash_attention_kernel<T, TO, TQ><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)lengths, (TO*)o,
+      lse, heads, kv_heads, sq, sk, d, causal, scale, split_tiles,
+      (float*)part, (int32_t*)counters);
   return (int)cudaGetLastError();
 }
 
+// lse null: o in T; else o in float32 with lse beside it (decode's rows)
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths,
-             void* o, long long batch, long long heads, long long kv_heads,
-             long long sq, long long sk, int d, int causal, float scale,
-             int split_tiles, void* part, void* counters,
+             void* o, float* lse, long long batch, long long heads,
+             long long kv_heads, long long sq, long long sk, int d, int causal,
+             float scale, int split_tiles, void* part, void* counters,
              cudaStream_t stream) {
+  const bool decode = heads / kv_heads * sq <= 16;
+  if (lse != nullptr)
+    return decode ? launch<T, float, 16>(q, k, v, lengths, o, lse, batch,
+                                         heads, kv_heads, sq, sk, d, causal,
+                                         scale, split_tiles, part, counters,
+                                         stream)
+                  : (int)cudaErrorInvalidValue;
   // a short query block (decode: G rows) takes 16-row tiles
-  if (heads / kv_heads * sq <= 16)
-    return launch<T, 16>(q, k, v, lengths, o, batch, heads, kv_heads, sq, sk,
-                         d, causal, scale, split_tiles, part, counters,
-                         stream);
+  if (decode)
+    return launch<T, T, 16>(q, k, v, lengths, o, nullptr, batch, heads,
+                            kv_heads, sq, sk, d, causal, scale, split_tiles,
+                            part, counters, stream);
   if (split_tiles > 0) return (int)cudaErrorInvalidValue;
-  return launch<T, 64>(q, k, v, lengths, o, batch, heads, kv_heads, sq, sk, d,
-                       causal, scale, 0, nullptr, nullptr, stream);
+  return launch<T, T, 64>(q, k, v, lengths, o, nullptr, batch, heads,
+                          kv_heads, sq, sk, d, causal, scale, 0, nullptr,
+                          nullptr, stream);
 }
 
 
@@ -573,8 +597,10 @@ int launch_wgmma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// lse (may be null): the partial output, o in float32 and each row's
+// log-sum-exp in lse (B, H, Sq), decode's rows only.
 extern "C" int lm_flash_attention(const void* q, const void* k, const void* v,
-                                  const void* lengths, void* o,
+                                  const void* lengths, void* o, void* lse,
                                   long long batch, long long heads,
                                   long long kv_heads, long long sq,
                                   long long sk, long long d, int causal,
@@ -583,11 +609,12 @@ extern "C" int lm_flash_attention(const void* q, const void* k, const void* v,
   if (d < 1 || d > kMaxHeadDim) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, lengths, o, batch, heads, kv_heads,
-                                   sq, sk, (int)d, causal, scale, split_tiles,
-                                   part, counters, s);
-  return dispatch<float>(q, k, v, lengths, o, batch, heads, kv_heads, sq, sk,
-                         (int)d, causal, scale, split_tiles, part, counters, s);
+    return dispatch<__nv_bfloat16>(q, k, v, lengths, o, (float*)lse, batch,
+                                   heads, kv_heads, sq, sk, (int)d, causal,
+                                   scale, split_tiles, part, counters, s);
+  return dispatch<float>(q, k, v, lengths, o, (float*)lse, batch, heads,
+                         kv_heads, sq, sk, (int)d, causal, scale, split_tiles,
+                         part, counters, s);
 }
 
 // bf16, head_dim % 16 == 0 and <= 128, 16-byte-aligned bases (checked by

@@ -17,6 +17,20 @@ launches the routed kernel or raises:
 * ``"simt"``: everything else (float32, other head dims, short caches):
   the CUDA cores in float32.
 
+:func:`flash_attention_partial` is decode's attention (no causal mask, at
+most :data:`DECODE_ROWS` query rows per KV head) on the ``split`` or
+``simt`` route of the same kernel, its output in float32 with each row's
+log-sum-exp beside it (``lm_flash_attention`` given an ``lse``
+pointer; ``run_route(..., partial=True)``): the partial result
+of attention over one range of keys, which :func:`merge_partials` merges
+across ranges exactly as the ``split`` route merges its blocks.  Where
+:func:`flash_attention` is given a decode-shaped, non-causal call on
+``DTensor`` keys and values sharded on their positions (a KV cache
+sharded on ``seq``) and no gradient is wanted (the partial output has
+none), each rank attends over its own keys and the ranks merge by
+all-reduces of the row maxima and of the weighted sums
+(:func:`_over_key_shards`); the cache is never gathered.
+
 The gradient (``csrc/flash_attention_bwd.cu``) runs through
 :func:`attention_bwd`: two kernels, ``dq`` a query tile and ``dkdv`` a
 key tile, on one of two routes that :func:`route_bwd` picks by an
@@ -51,7 +65,7 @@ import math
 import torch
 
 from .. import build
-from .ref import mha_ref, mha_ref_bwd
+from .ref import mha_ref, mha_ref_bwd, mha_ref_lse
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel against its plain version, ``|got - plain| <= atol + rtol *
@@ -68,6 +82,8 @@ MAX_HEAD_DIM = 128
 BWD_TOLERANCE = {torch.float32: (1e-4, 1e-4),
                  torch.bfloat16: (1e-4, 2.0 ** -7)}
 ROUTES = ("wgmma", "split", "simt")
+#: the routes of :func:`flash_attention_partial`: decode's
+PARTIAL_ROUTES = ("split", "simt")
 #: the backward's routes, and its two kernels (each launch counted by
 #: kernel and route, apart from the forward's)
 BWD_ROUTES = ("wgmma", "simt")
@@ -112,8 +128,136 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``<= i + (Sk - Sq)``.  Any ``Sq``, ``Sk`` and ``D <= 128``.
     Differentiable in q, k and v (:func:`attention_bwd`).
     """
+    if not causal and _decode_rows(q, k) and _keys_sharded(k) \
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (q, k, v))):
+        return _over_key_shards(q, k, v, lengths)
     lengths = _check(q, k, v, lengths)
     return _attention_op(q, k, v, lengths, causal)
+
+
+def _decode_rows(q, k) -> bool:
+    """Whether the call has decode's rows: at most :data:`DECODE_ROWS`
+    query rows (grouped heads x positions) per KV head."""
+    return q.shape[1] // max(1, k.shape[1]) * q.shape[2] <= DECODE_ROWS
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            lengths: torch.Tensor | None = None):
+    """Decode's non-causal attention over the keys at hand, and each row's
+    log-sum-exp: ``(o, lse)``, ``o`` (B, H, Sq, D) normalised and ``lse``
+    (B, H, Sq) ``m + log(l)`` of the online softmax, both float32.  A row
+    with no live key gives ``o = 0`` and ``lse = -inf``.  Operands as
+    :func:`flash_attention`'s, with at most :data:`DECODE_ROWS` query rows
+    per KV head; a CUDA tensor launches the ``split`` or ``simt`` route
+    (:func:`route`) or raises, a CPU one runs :func:`.ref.mha_ref_lse`.
+    Not differentiable."""
+    lengths = _check(q, k, v, lengths)
+    if not _decode_rows(q, k):
+        raise ValueError(f"flash_attention_partial takes at most "
+                         f"{DECODE_ROWS} query rows per KV head")
+    return _partial_op(q, k, v, lengths)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_partial",
+                         mutates_args=())
+def _partial_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if build.plain(q):
+        o, lse = mha_ref_lse(q, k, v, lengths)
+        return o.float(), lse.float()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return run_route(route(q, k, v), q, k, v, lengths, False, partial=True)
+
+
+@_partial_op.register_fake
+def _(q, k, v, lengths):
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(q.shape[:-1], dtype=torch.float32))
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over every key range from its ranges' partial
+    results, stacked on a leading axis: ``o`` (R, ..., D) and ``lse`` (R,
+    ...) of :func:`flash_attention_partial`; float32, ``sum_r exp(lse_r -
+    M) o_r / sum_r exp(lse_r - M)`` with ``M = max_r lse_r``.  One range
+    is returned as it is; a row with no live key in any range is 0."""
+    return _merge(o, lse, lambda x, op: x.amax(0) if op == "max"
+                  else x.sum(0))
+
+
+def _merge(o, lse, total):
+    """:func:`merge_partials` with ``total(x, op)`` reducing ``x`` over
+    the key ranges by ``op``, ``"max"`` or ``"sum"``."""
+    top = total(lse, "max")
+    w = torch.exp(lse - torch.where(torch.isinf(top), 0.0, top))
+    return total(w[..., None] * o, "sum") / total(w, "sum").clamp_min(
+        1e-30)[..., None]
+
+
+def _keys_sharded(k) -> bool:
+    """Whether ``k`` is a ``DTensor`` sharded on its positions (dim 2),
+    its other mesh dims on the batch, the heads or replicated."""
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None or not isinstance(k, mod.DTensor):
+        return False
+    ok = (mod.Shard(0), mod.Shard(1), mod.Shard(2), mod.Replicate())
+    return mod.Shard(2) in k.placements and all(p in ok for p in k.placements)
+
+
+def _over_key_shards(q, k, v, lengths):
+    """:func:`flash_attention` (non-causal, decode's rows) on ``DTensor``
+    k and v sharded on their positions: q and ``lengths`` placed as k's
+    batch and heads and replicated over the key shards' mesh dims (a
+    collective only where they are placed otherwise); each rank runs
+    :func:`flash_attention_partial` on its own keys, with the live keys
+    of its range, ``clamp(lengths - offset, 0, T_local)``; the ranks
+    merge as :func:`merge_partials` does, by all-reduces over those mesh
+    dims of the row maxima (B, H, Sq), then of the weighted sums (B, H,
+    Sq, D) and the weights (B, H, Sq), in float32; the result is cast to
+    q's type once, after the merge.  A mesh dim of one rank makes no
+    collective, so on a one-rank mesh the result is the kernel's own,
+    bit for bit.  The shards may be uneven (``DTensor`` splits as
+    ``torch.chunk`` does): a rank's first key is its shard's own global
+    offset."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from ...sharding.partition import from_local, redistributed
+    mesh = k.device_mesh
+    seq = [i for i, p in enumerate(k.placements)
+           if p == Shard(2) and mesh.shape[i] > 1]
+    want = [Replicate() if p == Shard(2) else p for p in k.placements]
+
+    def placed(t, place):
+        if not isinstance(t, DTensor):
+            t = from_local(t, (mesh, [Replicate()] * mesh.ndim), t.shape)
+        return redistributed(t, place, local=True)
+
+    if lengths is None:
+        lengths = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32,
+                             device=k.to_local().device)
+    q_l = placed(q, want)
+    v_l = placed(v, k.placements)
+    len_l = placed(lengths, [Shard(0) if p == Shard(0) else Replicate()
+                             for p in want])
+    k_l = k.to_local()
+    first = compute_local_shape_and_global_offset(k.shape, mesh,
+                                                  k.placements)[1][2]
+    t = k_l.shape[2]
+    live = (len_l.long() - first).clamp(0, t).to(torch.int32)
+    o, lse = flash_attention_partial(q_l, k_l, v_l, live)
+
+    def summed(x, op):
+        for i in seq:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, i)))
+        return x
+
+    out = _merge(o, lse, summed)
+    return from_local(out.to(q.dtype), (mesh, want), tuple(q.shape))
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
@@ -226,12 +370,18 @@ def _register_flops() -> None:
     def _(q, k, v, o, do, lengths, causal, *, out_shape=None, **kwargs):
         return _flops(q, k, 5)
 
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_partial)
+    def _(q, k, v, lengths, *, out_shape=None, **kwargs):
+        return _flops(q, k, 2)
+
 
 _register_flops()
 
 
 def register_dtensor_rules() -> None:
-    """Register both operators' ``DTensor`` sharding rules (idempotent).
+    """Register the three operators' ``DTensor`` sharding rules
+    (idempotent; :func:`flash_attention_partial`'s like the forward's, its
+    ``lse`` placed as its output).
     On each mesh dim q, k, v, o, do and the outputs are sharded alike on
     the batch (``lengths`` with them) or on the heads (``lengths``
     replicated; only where the mesh dim divides both H and KV, so each
@@ -259,6 +409,10 @@ def register_dtensor_rules() -> None:
     @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
     def _(q, k, v, o, do, lengths, causal):
         return options(q, k, 5, 3)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_partial.default)
+    def _(q, k, v, lengths):
+        return [(outs, ins[:-1]) for outs, ins in options(q, k, 3, 2)]
 
     _RULES.append(True)
 
@@ -330,15 +484,19 @@ def _count_bwd(kernel: str, name: str) -> None:
 
 
 def run_route(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              lengths: torch.Tensor | None = None,
-              causal: bool = True) -> torch.Tensor:
+              lengths: torch.Tensor | None = None, causal: bool = True, *,
+              partial: bool = False):
     """Launch route ``name``'s kernel on CUDA tensors; raises if that
     kernel cannot take them.  :func:`flash_attention` calls it with
     :func:`route`'s choice; a caller may name another route that takes
-    the operands, to hold or time one kernel against another."""
+    the operands, to hold or time one kernel against another.  With
+    ``partial``, :func:`flash_attention_partial`'s output: ``(o, lse)``,
+    float32, on a route of :data:`PARTIAL_ROUTES`, decode's rows and no
+    causal mask."""
     lengths = _check(q, k, v, lengths)
+    kernel = "flash_attention_partial" if partial else "flash_attention"
     if q.device.type != "cuda":
-        raise RuntimeError(f"no flash_attention kernel for {q.device}")
+        raise RuntimeError(f"no {kernel} kernel for {q.device}")
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     if not 0 < d <= MAX_HEAD_DIM:
@@ -347,8 +505,14 @@ def run_route(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lengths.device != q.device:
         raise ValueError("all operands must be on one device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if name not in ROUTES:
-        raise ValueError(f"unknown route {name!r}; routes are {ROUTES}")
+    routes = PARTIAL_ROUTES if partial else ROUTES
+    if name not in routes:
+        raise ValueError(f"unknown route {name!r}; {kernel}'s routes are "
+                         f"{routes}")
+    if partial and (causal or not _decode_rows(q, k)):
+        raise ValueError(f"flash_attention_partial takes at most "
+                         f"{DECODE_ROWS} query rows per KV head, no causal "
+                         "mask")
     if name == "wgmma" and (q.dtype != torch.bfloat16 or d % 16
                             or not build.tma_legal(q, k, v)):
         raise ValueError("route wgmma takes bfloat16, head_dim a multiple "
@@ -357,31 +521,46 @@ def run_route(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"route split takes at most {DECODE_ROWS} query "
                          "rows per KV head")
     lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if partial else q.dtype,
+                      device=q.device)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32,
+                      device=q.device) if partial else None
+    result = (out, lse) if partial else out
     if out.numel() == 0:
-        return out
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, h, kv, sq, sk, d, int(causal),
-            1.0 / math.sqrt(d))
+        return result
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            out.data_ptr())
+    shape = (b, h, kv, sq, sk, d, int(causal), 1.0 / math.sqrt(d))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if name == "wgmma":
         err = build.entry("flash_attention", "lm_flash_attention_wgmma")(
-            *args, stream)
+            *ptrs, *shape, stream)
     else:
-        split = (0, None, None)         # tiles a block, partials, counters
-        if name == "split":
-            tiles = -(-sk // _KEYS_PER_TILE)
-            splits = -(-tiles // SPLIT_TILES)
-            part = torch.empty((b * kv * splits * DECODE_ROWS * (d + 2),),
-                               dtype=torch.float32, device=q.device)
-            split = (SPLIT_TILES, part.data_ptr(),
-                     _counters(q.device, stream, b * kv).data_ptr())
+        split, _part = _split(name, q, k, stream)
         err = build.entry("flash_attention", "lm_flash_attention")(
-            *args, int(q.dtype == torch.bfloat16), *split, stream)
-    flash_attention.launches += 1
-    flash_attention.by_route[name] += 1
-    build.check(err, f"flash_attention ({name})")
-    return out
+            *ptrs, lse.data_ptr() if partial else None, *shape,
+            int(q.dtype == torch.bfloat16), *split, stream)
+    counter = flash_attention_partial if partial else flash_attention
+    counter.launches += 1
+    counter.by_route[name] += 1
+    build.check(err, f"{kernel} ({name})")
+    return result
+
+
+def _split(name: str, q, k, stream: int):
+    """The ``split`` route's arguments (tiles a block, the partials'
+    pointer, the counters' pointer; zeros for ``simt``) and the partials'
+    tensor, which the caller keeps until the launch is queued."""
+    if name != "split":
+        return (0, None, None), None
+    b, _, _, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    tiles = -(-sk // _KEYS_PER_TILE)
+    splits = -(-tiles // SPLIT_TILES)
+    part = torch.empty((b * kv * splits * DECODE_ROWS * (d + 2),),
+                       dtype=torch.float32, device=q.device)
+    return (SPLIT_TILES, part.data_ptr(),
+            _counters(q.device, stream, b * kv).data_ptr()), part
 
 
 def _counters(device, stream: int, n: int) -> torch.Tensor:
@@ -429,3 +608,6 @@ flash_attention.by_route = dict.fromkeys(ROUTES, 0)
 flash_attention.backward_launches = 0
 flash_attention.backward_by_route = {k: dict.fromkeys(BWD_ROUTES, 0)
                                      for k in BWD_KERNELS}
+#: the partial output's launches, in all and by route
+flash_attention_partial.launches = 0
+flash_attention_partial.by_route = dict.fromkeys(PARTIAL_ROUTES, 0)

@@ -6,8 +6,10 @@ adds grouped-query attention: ``k`` and ``v`` may have fewer heads than
 ``q``, and query head ``h`` reads key/value head ``h // G`` with
 ``G = H / KV``.  With ``KV == H`` it is the reference's function.
 :func:`mha_ref_bwd` is the gradient written out (the reference has no
-backward kernel: XLA differentiates its jnp attention).  Both compute
-in float32, or in float64 for float64 inputs.
+backward kernel: XLA differentiates its jnp attention), and
+:func:`mha_ref_lse` the non-causal attention with each row's log-sum-exp
+beside it (the partial result that merges across key shards).  All
+compute in float32, or in float64 for float64 inputs.
 """
 from __future__ import annotations
 
@@ -64,6 +66,24 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, v = _acc(k)[:, :, None], _acc(v)[:, :, None]
     p, _ = _probs(q, k, lengths, causal)
     return torch.matmul(p, v).reshape(b, h, sq, d)
+
+
+def mha_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor | None = None):
+    """Non-causal :func:`mha_ref` and each row's log-sum-exp of its live
+    scaled scores: ``(o (B, H, Sq, D), lse (B, H, Sq))``, both float32 (or
+    float64).  A row with no live key has ``o = 0`` and ``lse = -inf``."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qf = _acc(q).reshape(b, kv, h // kv, sq, d)
+    kf, vf = _acc(k)[:, :, None], _acc(v)[:, :, None]
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(d)
+    mask = _mask(b, sq, sk, lengths, False, q.device)
+    lse = torch.logsumexp(torch.where(mask, logits, -math.inf), dim=-1)
+    top = torch.where(torch.isinf(lse), 0.0, lse)[..., None]
+    p = torch.where(mask, torch.exp(logits - top), 0.0)
+    o = torch.matmul(p, vf)
+    return o.reshape(b, h, sq, d), lse.reshape(b, h, sq)
 
 
 def mha_ref_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

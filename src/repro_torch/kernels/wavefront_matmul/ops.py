@@ -202,17 +202,34 @@ _register_flops()
 def register_dtensor_rules() -> None:
     """Register both operators' ``DTensor`` sharding rules (idempotent).
     On each mesh dim: the expert (batch) axis of a 3-D product sharded
-    in every operand and output, ``row_active`` with it; ``B``'s columns
-    sharded (``C``'s columns with them; the gradient's ``dA`` a partial
-    sum); the contracted axis sharded in ``A`` and ``B`` (``C`` a
-    partial sum; the gradient's ``dA`` and ``dB`` sharded); or all
-    replicated.  DTensor redistributes any other placement to one of
-    these, and counts it."""
+    in every operand and output, ``row_active`` with it; ``A``'s rows
+    sharded (``C``'s rows with them; the gradient's ``dB`` a partial sum)
+    where each shard holds whole 128-row tiles, ``row_active``'s tiles
+    sharded with them, or where all rows are one tile, ``row_active``
+    replicated; ``B``'s columns sharded (``C``'s columns with them; the
+    gradient's ``dA`` a partial sum); the contracted axis sharded in
+    ``A`` and ``B`` (``C`` a partial sum; the gradient's ``dA`` and
+    ``dB`` sharded); or all replicated.  DTensor redistributes any other
+    placement to one of these, and counts it."""
     if _RULES:
         return
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
     r, p = Replicate(), Partial()
+
+    def row_tiles(a, row_active):
+        """``row_active``'s placement where ``A``'s rows are sharded:
+        ``Shard`` of its tiles where A's row shards (as A is placed now)
+        are whole tiles, ``Replicate`` where all rows are one tile."""
+        rows, shards = a.shape[-2], 1
+        for n, pl in zip(a.mesh.shape, a.placements):
+            shards *= n if pl == Shard(a.ndim - 2) else 1
+        out = []
+        if rows % TILE_M == 0 and (rows // TILE_M) % shards == 0:
+            out.append(Shard(row_active.ndim - 1))
+        if rows <= TILE_M:
+            out.append(r)
+        return out
 
     @register_sharding(torch.ops.repro_torch.wavefront_matmul.default)
     def _(a, b, row_active):
@@ -220,6 +237,8 @@ def register_dtensor_rules() -> None:
         out = [([r], [r, r, r]),
                ([Shard(la)], [r, Shard(lb), r]),
                ([p], [Shard(la), Shard(lb - 1), r])]
+        out += [([Shard(la - 1)], [Shard(la - 1), r, t])
+                for t in row_tiles(a, row_active)]
         if a.ndim == 3:
             out.append(([Shard(0)], [Shard(0)] * 3))
         return out
@@ -230,6 +249,8 @@ def register_dtensor_rules() -> None:
         out = [([r, r], [r, r, r, r]),
                ([p, Shard(lb)], [r, Shard(lb), r, Shard(la)]),
                ([Shard(la), Shard(lb - 1)], [Shard(la), Shard(lb - 1), r, r])]
+        out += [([Shard(la - 1), p], [Shard(la - 1), r, t, Shard(la - 1)])
+                for t in row_tiles(a, row_active)]
         if a.ndim == 3:
             out.append(([Shard(0)] * 2, [Shard(0)] * 4))
         return out

@@ -21,7 +21,10 @@ runs once under :class:`StepTrace` (``specs.run_step``): DTensor's sharding prop
 rules (``partition.register_rules``: the hand-written kernels' operators,
 whose fake implementations run here, and a few elementwise operators)
 and the models' own placements (``models.common.batch_only``,
-``gather_fsdp``), inserts the collectives.  Per cell, JSON with the
+``gather_fsdp``), inserts the collectives; the layers whose partitioning
+DTensor's rules cannot express make their own, on local shards (the MoE's
+dispatch and combine, ``models.moe``; decode attention's merge over a
+cache sharded on its positions, ``kernels.flash_attention.ops``).  Per cell, JSON with the
 reference's keys:
 
 * ``memory.argument_bytes``: rank 0's bytes of every argument leaf under
@@ -37,9 +40,11 @@ reference's keys:
   config's layers, counted once a loop body;
 * ``collectives``: ``bytes``, ``count`` and ``total_bytes`` by the
   reference's five kinds: each collective's result bytes on rank 0, as
-  :func:`collective_bytes` sums HLO result shapes.  On the CPU mesh
-  DTensor moves a shard from one dim to another by an all-gather and a
-  chunk (``gloo`` has no all-to-all), so that counts as all-gather;
+  :func:`collective_bytes` sums HLO result shapes.  On a CPU mesh
+  DTensor's redistribution moves a shard from one dim to another by an
+  all-gather and a chunk (it takes no all-to-all on a CPU process group,
+  though ``gloo``'s own ``all_to_all_single`` runs), so such a move
+  counts as all-gather;
 * ``lower_s``: the traced call's seconds (DTensor's sharding decisions,
   made once an operation and its operands' specs, included); ``compile_s``,
   ``generated_code_bytes``, ``bytes_accessed`` and ``transcendentals``:
@@ -169,8 +174,9 @@ class StepTrace:
       among them: this rank's products and nothing else (no elementwise
       operation, which XLA's count holds);
     * ``collectives``: each collective's result bytes, by the reference's
-      kind (the module's ``_FUNCOL_KINDS``), and ``largest``, one
-      collective's largest result;
+      kind (the module's ``_FUNCOL_KINDS``), ``largest``, one
+      collective's largest result, and ``by_shape``, the bytes by (kind,
+      result shape, type) (:meth:`largest_shapes`);
     * ``peak``: the most bytes of storage that the step's operations had
       allocated and not yet freed at once (tracked by each storage's
       lifetime), a kernel's own workspace (``workspace_bytes`` of its
@@ -199,6 +205,8 @@ class StepTrace:
         self.peak = 0
         #: the largest result of one collective
         self.largest = 0
+        #: (kind, result shape, type) -> result bytes in all
+        self.by_shape: dict = {}
         #: storage id -> (its weak reference, its buffer: [bytes, members])
         self._storages: dict = {}
         for t in known:
@@ -228,6 +236,12 @@ class StepTrace:
                     self.live -= buf[0]
 
         self._storages[key] = (self._weakref.ref(st, freed), buf)
+
+    def largest_shapes(self, n: int = 5) -> list:
+        """The ``n`` (kind, result shape, type, bytes) of
+        :attr:`by_shape` that moved the most bytes."""
+        return sorted(((*k, b) for k, b in self.by_shape.items()),
+                      key=lambda x: -x[3])[:n]
 
     def collectives(self) -> dict:
         out = {"bytes": dict(self.bytes), "count": dict(self.count),
@@ -292,6 +306,11 @@ class StepTrace:
                     else:
                         trace.bytes[kind] += nbytes
                         trace.largest = max(trace.largest, nbytes)
+                        key = (kind, " ".join(str(tuple(t.shape)) for t in
+                                              _tensors(out)),
+                               str(_tensors(out)[0].dtype).split(".")[-1])
+                        trace.by_shape[key] = trace.by_shape.get(key, 0) \
+                            + nbytes
                         trace.count[kind] += 1
                 if packet in flop_registry:
                     trace.flops += flop_registry[packet](*args, **kwargs,
@@ -347,6 +366,10 @@ def measure(cell: specs_mod.Cell) -> dict:
     with trace.mode():
         out = run(cell, args)
     lower_s = time.perf_counter() - t0
+    if trace.by_shape:
+        print("     largest collectives by result shape: " + "; ".join(
+            f"{k} {shape} {dt} {b:.4e} B" for k, shape, dt, b in
+            trace.largest_shapes()), flush=True)
     known = {id(_local(t).untyped_storage())
              for t in specs_mod.arg_tensors(args)}
     made = {}

@@ -250,13 +250,25 @@ def local_slices(shape, sh: NamedSharding) -> tuple:
     return tuple(out)
 
 
-def from_local(local, sh: NamedSharding, shape):
+def from_local(local, sh, shape):
     """The ``DTensor`` of global ``shape`` whose shard on this rank is
-    ``local`` (the caller's own tensor, not copied)."""
+    ``local`` (the caller's own tensor, not copied), placed as ``sh``: a
+    :class:`NamedSharding` or a ``(mesh, placements)`` pair."""
     from torch.distributed.tensor import DTensor
+    mesh, place = (sh.mesh, sh.placements) if isinstance(sh, NamedSharding) \
+        else sh
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
+    return DTensor.from_local(local, mesh, place, run_check=False,
                               shape=torch.Size(shape), stride=stride)
+
+
+def redistributed(t, place, local: bool = False):
+    """``DTensor`` ``t`` redistributed to placements ``place`` where it is
+    placed otherwise (a collective only then); its local shard where
+    ``local``."""
+    if list(t.placements) != list(place):
+        t = t.redistribute(t.device_mesh, place)
+    return t.to_local() if local else t
 
 
 def place(t, sh: NamedSharding):

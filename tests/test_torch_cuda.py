@@ -425,6 +425,59 @@ def test_flash_attention_split_route(dev, dtype, b, h, kv, sq, sk, d, causal):
     assert _within(old, exp, fops.TOLERANCE[dtype])
 
 
+@pytest.mark.parametrize("route", ["split", "simt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sk,d", [
+    (8, 24, 8, 1024, 64),                 # the granite serve's decode
+    (8, 16, 8, 2048, 128),                # internvl2's
+    (3, 6, 2, 300, 12)])                  # ragged head_dim
+def test_flash_attention_partial_each_route(dev, route, dtype, b, h, kv, sk,
+                                            d):
+    """Decode's float32 output and row log-sum-exp on both routes against
+    ``mha_ref_lse``: ``o`` within the float32 tolerance, ``lse`` within
+    1e-5 relative (-inf exactly for a row of no live key), and ``o`` in
+    the input's type within ``flash_attention``'s tolerance of its own
+    output on the route."""
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    g = torch.Generator(device=dev).manual_seed(sk + d + 1)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q, k, v = mk(b, h, 1, d), mk(b, kv, sk, d), mk(b, kv, sk, d)
+    lens = torch.randint(1, sk + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0], lens[-1] = 0, sk             # no live key, a full cache
+    before = dict(fops.flash_attention_partial.by_route)
+    o, lse = fops.run_route(route, q, k, v, lens, False, partial=True)
+    assert fops.flash_attention_partial.by_route[route] == before[route] + 1
+    exp_o, exp_lse = fref.mha_ref_lse(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert o.dtype == lse.dtype == torch.float32
+    assert _within(o, exp_o, fops.TOLERANCE[torch.float32])
+    dead = torch.isinf(exp_lse)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all())
+    assert bool(((lse - exp_lse).abs()[~dead]
+                 <= 1e-5 * exp_lse.abs()[~dead].clamp_min(1.0)).all())
+    assert torch.count_nonzero(o[0]) == 0
+    whole = fops.run_route(route, q, k, v, lens, False)
+    assert _within(o.to(dtype), whole, fops.TOLERANCE[dtype])
+    if fops.route(q, k, v) == route:
+        got = fops.flash_attention_partial(q, k, v, lens)
+        assert all(torch.equal(x, y) for x, y in zip(got, (o, lse)))
+
+
+def test_flash_attention_partial_refuses_prefill_rows(dev):
+    from repro_torch.kernels.flash_attention import ops as fops
+    q = torch.zeros((1, 4, 9, 64), device=dev)      # 18 rows a KV head
+    k = torch.zeros((1, 2, 512, 64), device=dev)
+    with pytest.raises(ValueError, match="query rows"):
+        fops.run_route("split", q, k, k, None, False, partial=True)
+    with pytest.raises(ValueError, match="causal"):
+        fops.run_route("split", q[:, :, :1], k, k, None, True, partial=True)
+    with pytest.raises(ValueError, match="routes are"):
+        fops.run_route("wgmma", q[:, :, :1], k, k, None, False, partial=True)
+    with pytest.raises(ValueError, match="query rows"):
+        fops.flash_attention_partial(q, k, k)
+
+
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.wavefront_matmul import ops as mops

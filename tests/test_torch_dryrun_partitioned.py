@@ -22,7 +22,12 @@
 * **The kernels' operators.**  The fake implementations give the plain
   versions' output shapes and types; the FLOP formulas equal
   ``FlopCounterMode`` of the plain versions; batch- or head-sharded
-  operands run with no collective, and a sequence-sharded KV is gathered.
+  operands run with no collective, and a sequence-sharded KV is gathered
+  for a query of more than ``DECODE_ROWS`` rows, a causal one or one that
+  wants a gradient; decode's query over it
+  gathers nothing (each rank attends over its own keys, the ranks merge
+  by all-reduces); an expert product whose rows are sharded runs with no
+  collective.
 
 The ranks and the ``fake`` group each run in a subprocess of their own
 (a process group is process-wide), all started at once.
@@ -237,8 +242,9 @@ for arch in ARCHS:
             "peak": trace.peak, "whole": fc.get_total_flops(),
             "largest": trace.largest}}
 
-# the kernels' rules: batch- and head-sharded operands, and a KV sharded
-# on the sequence
+# the kernels' rules: batch- and head-sharded operands, a KV sharded on
+# the sequence (a causal query: gathered), decode's query over such a KV
+# (no gather) and an expert product sharded on its rows
 partition.register_rules()
 R, S0, S1, S2 = Replicate(), Shard(0), Shard(1), Shard(2)
 def dt(shape, place, dtype=torch.float32):
@@ -269,10 +275,24 @@ for name, place, kv_place in (("batch", [S0, R], [S0, R]),
     rules["attention/" + name] = {{
         "fwd": fwd, "all": trace.collectives()["total_bytes"],
         "out": [str(p) for p in o.placements]}}
-for name, place in (("experts", [S0, R]), ("experts2", [S0, S0])):
-    a = dt((4, 200, 32), place).requires_grad_()
-    b = dt((4, 32, 48), place).requires_grad_()
-    act = dt((4, 2), place, torch.int32)
+q = dt((4, 4, 1, 16), [S0, R])
+k, v = dt((4, 2, 8, 16), [S0, S2]), dt((4, 2, 8, 16), [S0, S2])
+lens = dt((4,), [S0, R], torch.int32)
+trace = dryrun.StepTrace()
+with trace.mode():
+    o = aops.flash_attention(q, k, v, lens, causal=False)
+rules["attention/decode_kv_seq"] = {{
+    "fwd": trace.collectives()["total_bytes"],
+    "gathered": trace.collectives()["bytes"]["all-gather"],
+    "out": [str(p) for p in o.placements]}}
+for name, place, act_place, m in (("experts", [S0, R], [S0, R], 200),
+                                  ("experts2", [S0, S0], [S0, S0], 200),
+                                  ("rows", [S1, R], [S1, R], 512),
+                                  ("rows_one_tile", [S1, S0], [R, S0], 100)):
+    a = dt((4, m, 32), place).requires_grad_()
+    b = dt((4, 32, 48), [S0 if p == S0 else R for p in place]
+           ).requires_grad_()
+    act = dt((4, -(-m // 128)), act_place, torch.int32)
     trace = dryrun.StepTrace()
     with trace.mode():
         out = mops.wavefront_matmul(a, b, act)
@@ -365,6 +385,16 @@ def test_kernel_rules_keep_batch_and_head_shards(runs):
     for name in ("experts", "experts2"):
         assert rules[f"matmul/{name}"]["fwd"] == 0, (name, rules)
         assert rules[f"matmul/{name}"]["out"][0] == "S(0)"
+    # rows sharded: whole 128-row tiles, or all rows in one tile
+    for name in ("rows", "rows_one_tile"):
+        assert rules[f"matmul/{name}"]["fwd"] == 0, (name, rules)
+        assert rules[f"matmul/{name}"]["out"][0] == "S(1)"
+
+
+def test_decode_over_a_sequence_sharded_kv_gathers_nothing(runs):
+    rule = runs[1]["rules"]["attention/decode_kv_seq"]
+    assert rule["gathered"] == 0 and rule["fwd"] > 0, rule
+    assert rule["out"] == ["S(0)", "R"]
 
 
 def _attention_inputs(dtype):
