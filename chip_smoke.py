@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --suite-ab PARENT
+    python3 chip_smoke.py --grad-ab PARENT [THIS]
+    python3 chip_smoke.py --train-ab PARENT [THIS]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -112,9 +114,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``wgmma`` and ``simt``, against ``mha_ref_bwd`` over ragged S, GQA
    G = 1, 3, 4, lengths below S, causal and not, float32 and bfloat16,
    twice bit for bit, poisoned tails, rows with no live key; the
-   ``wavefront_matmul`` gradient products against
-   ``wavefront_matmul_ref_bwd`` with inactive tiles and a padded
-   contraction); the smoke trainer (granite and yi, float32 and
+   ``wavefront_matmul`` gradient against ``wavefront_matmul_ref_bwd``
+   with inactive tiles and an expert with none live, on the route
+   ``route_bwd`` picks, and for bfloat16 each product alone of the
+   in-place kernel bit for bit the whole call's and the ``"copies"`` route
+   within tolerance of it); the smoke trainer (granite and yi, float32 and
    bfloat16, ``--init numpy``, 5 steps) against the JAX reference's
    committed run (``src/repro_torch/training/reference_train.json``),
    each step's loss, gradient norm and lr within
@@ -131,8 +135,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    time); then the backward kernels timed at the training shapes: the
    attention backward's two routes and ``torch.autograd.grad`` of
    ``scaled_dot_product_attention`` the same way (by CUDA graph where
-   the library's autograd captures, else all three eagerly), the
-   gradient products against ``torch.bmm``, with the bound;
+   the library's autograd captures, else all three eagerly), the expert
+   GEMM's whole gradient call on ``wgmma`` (one launch of the in-place
+   kernel) beside the ``"copies"`` route (the previous design), two
+   launches, each product alone and ``torch.bmm`` of transposed views,
+   with the bound and the allocator's growth (dA + dB, no copy);
 7. the other families' serve, after the trainer is freed: the smoke
    serves of zamba2, xlstm, seamless-m4t and internvl2 against the JAX
    reference's committed runs
@@ -214,6 +221,15 @@ Phases, in order; any failure exits non-zero and prints no result:
 The last two lines of standard output are the kernels' JSON and the
 device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX or of the JAX package ``repro``.
+
+``--grad-ab PARENT [THIS]`` times the expert GEMM's whole gradient call
+(``matmul_bwd``) at granite's two training shapes on an older checkout
+and on this one (or ``THIS``) the same way, with each call's allocator
+growth.
+
+``--grad-rows`` runs phase 6's gradient rows alone (:func:`grad_row`).
+``--train-ab PARENT [THIS]`` times phase 6's full-width granite training
+steps on an older checkout and on this one the same way.
 
 ``--suite-ab PARENT`` times the main path alone (the suite through
 ``run_program`` and both ``fleet_run`` batches, leaves held against the
@@ -1989,7 +2005,8 @@ BWD_ATTN_CASES = ((8, 24, 8, 511, 511, 64, True),
                   (2, 4, 1, 150, 90, 64, True, (90, 57)),
                   (2, 6, 3, 100, 37, 12, True, (37, 0)))
 BWD_MM_CASES = ((40, 818, 1536, 512), (40, 818, 512, 1536), (5, 200, 48, 64),
-                (3, 300, 160, 96), (7, 9, 64, 24))
+                (3, 300, 160, 96), (7, 9, 64, 24), (5, 9, 48, 64),
+                (3, 300, 100, 64))
 
 
 def bwd_attn_routes(dtype, d) -> tuple:
@@ -2083,25 +2100,55 @@ def check_lm_backward(dev) -> dict:
             act = torch.randint(0, 2, (e, -(-m // 128)), generator=g,
                                 device=dev, dtype=torch.int32)
             act[0] = 1
+            if e > 1:
+                act[-1] = 0                 # an expert with no live tile
             before = {p: dict(r) for p, r in
                       mops.wavefront_matmul.backward_by_route.items()}
             da, db = mops.matmul_bwd(a, b, act, dc)
+            took = {p: [r for r, c in v.items() if c > before[p][r]] for p, v
+                    in mops.wavefront_matmul.backward_by_route.items()}
             eda, edb = mref.wavefront_matmul_ref_bwd(a, b, act, dc)
+            # the in-place route's products alone, and the copies (the
+            # previous design), where bfloat16 operands take them
+            others = {}
+            if mops.route_bwd(a, b, dc)[0] == "wgmma":
+                others = {"copies": mops.run_bwd_route("copies", a, b, act,
+                                                       dc),
+                          "wgmma da alone": mops.run_bwd_route(
+                              "wgmma", a, b, act, dc, ("da",)),
+                          "wgmma db alone": mops.run_bwd_route(
+                              "wgmma", a, b, act, dc, ("db",))}
             torch.cuda.synchronize()
             # dB sums M products where the forward summed K: its rounding
             # is held at the same relative tolerance, over its own scale
+            tol_db = (tol[0] * m ** 0.5, tol[1])
+            where = f"wavefront_matmul backward {dt} {e}x{m}x{k}x{nn}"
             try:
                 worst["wavefront_matmul_bwd"] = max(
                     worst["wavefront_matmul_bwd"], within(da, eda, tol),
-                    within(db, edb, (tol[0] * m ** 0.5, tol[1])))
+                    within(db, edb, tol_db))
                 off = ~mref.tile_mask(act, m)
                 if torch.count_nonzero(da[off]):
                     raise AssertionError("inactive tiles' dA not zero")
+                if e > 1 and torch.count_nonzero(db[-1]):
+                    raise AssertionError("an expert with no live tile has "
+                                         "a non-zero dB")
+                # the copies within tolerance of the in-place route; a
+                # product alone bit for bit the whole call's
+                for label, pair in others.items():
+                    for x, y, t in zip(pair, (da, db), (tol, tol_db)):
+                        if x is None:
+                            continue
+                        if "alone" in label and not torch.equal(x, y):
+                            raise AssertionError(f"{label} differs from the "
+                                                 f"whole call's")
+                        within(x, y, t)
+                    if pair[0] is not None and \
+                            torch.count_nonzero(pair[0][off]):
+                        raise AssertionError(f"{label}: inactive tiles' dA "
+                                             f"not zero")
             except AssertionError as err:
-                raise AssertionError(f"wavefront_matmul backward {dt} "
-                                     f"{e}x{m}x{k}x{nn}: {err}") from None
-            took = {p: [r for r, c in v.items() if c > before[p][r]] for p, v
-                    in mops.wavefront_matmul.backward_by_route.items()}
+                raise AssertionError(f"{where}: {err}") from None
             mm_routes[f"{dt} {e}x{m}x{k}x{nn}"] = took
             n += 1
     if not all(attn_cases.values()):
@@ -2180,6 +2227,13 @@ def active_params(cfg) -> tuple:
                f"norms {2 * d}) + ln_f {d} + unembed {d * cfg.vocab}")
 
 
+def mm_bwd_routes(**counts) -> dict:
+    """A gradient product's launches by route: ``counts``, every other
+    route of ``BWD_ROUTES`` 0."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    return {r: counts.get(r, 0) for r in mops.BWD_ROUTES}
+
+
 def bwd_counts() -> dict:
     """The backward launches by kernel and route, as a copy."""
     c = lm_counters()
@@ -2215,6 +2269,7 @@ def train_full(dev, gpu: str) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in lm_counters().items()}
     routes, bwd = route_counts(), bwd_counts()
+    mm_launches = lm_counters()["wavefront_matmul"].backward_launches
     peak = torch.cuda.max_memory_allocated(dev)
     cfg = rec["cfg"]
     steps = rec["steps"]
@@ -2231,8 +2286,8 @@ def train_full(dev, gpu: str) -> dict:
                                  "simt": 0}}
     want_bwd = {"flash_attention": {k: {"wgmma": blocks, "simt": 0}
                                     for k in ("dq", "dkdv")},
-                "wavefront_matmul": {p: {"wgmma": 3 * blocks, "small_m": 0,
-                                         "simt": 0} for p in ("da", "db")}}
+                "wavefront_matmul": {p: mm_bwd_routes(wgmma=3 * blocks)
+                                     for p in ("da", "db")}}
     if routes != want or bwd != want_bwd:
         raise AssertionError(f"training launches by route {routes}, "
                              f"backward {bwd}; expected {want}, {want_bwd}")
@@ -2261,6 +2316,7 @@ def train_full(dev, gpu: str) -> dict:
     shares = profile_train_step(model, opt_state, step_fn, ds, dev, gpu)
     del model, opt_state, step_fn, rec
     return {"cfg": cfg, "launches": launches, "routes": routes, "bwd": bwd,
+            "mm_bwd_launches": mm_launches,
             "step_s": step_s, "tokens_s": tokens / step_s, "mfu": mfu,
             "peak": peak, "shares": shares, "losses": losses}
 
@@ -2269,6 +2325,7 @@ def train_full(dev, gpu: str) -> dict:
 KERNEL_FAMILIES = (("flash_attention backward", ("fa_bwd_",)),
                    ("flash_attention", ("fa_wgmma_kernel",
                                         "flash_attention_kernel")),
+                   ("wavefront_matmul gradient", ("wgmma_grad_kernel",)),
                    ("wavefront_matmul", ("wgmma_matmul_kernel",
                                          "small_m_matmul_kernel",
                                          "wavefront_matmul_kernel")))
@@ -2419,11 +2476,10 @@ def train_kernels(dev, full: dict) -> list:
     plain versions and timed in turns: the attention backward (``dq`` +
     ``dkdv``), its ``wgmma`` route, its ``simt`` route (the previous
     design) and ``torch.autograd.grad`` of
-    ``scaled_dot_product_attention``, all three the same way; each
-    expert-GEMM gradient product (``dA``, ``dB``, up and down) against
-    ``torch.bmm``; with the bound."""
+    ``scaled_dot_product_attention``, all three the same way; the expert
+    GEMM's whole gradient call, up and down (:func:`grad_row`); with the
+    bound."""
     import torch
-    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
     cfg = full["cfg"]
     g = torch.Generator(device=dev).manual_seed(13)
     bf = torch.bfloat16
@@ -2451,78 +2507,131 @@ def train_kernels(dev, full: dict) -> list:
            "phase": "train", "call": f"{cfg.name} attention"}
     rows.append(row)
     log(f"[train-timing] {attn_bwd_line(row)}")
-    # the expert GEMMs' gradient products, as matmul_bwd launches them
+    # the expert GEMMs' gradient at the training call, up and down
     cap = max(1, int(round(b * s * cfg.top_k / e)))
-    mp = -(-cap // mops.PAD_K) * mops.PAD_K
-    cases = []
+    calls = []
     for call, kk, nn in (("up", d, f), ("down", f, d)):
         a, w = rn(e, cap, kk), rn(e, kk, nn, scale=kk ** -0.5)
         dc = rn(e, cap, nn)
         act = torch.ones((e, -(-cap // 128)), dtype=torch.int32, device=dev)
-        at = a.new_zeros((e, kk, mp))
-        at[..., :cap] = a.transpose(-1, -2)
-        dcm = a.new_zeros((e, mp, nn))
-        dcm[:, :cap] = dc
-        every = torch.ones((e, -(-kk // 128)), dtype=torch.int32, device=dev)
-        bt = w.transpose(-1, -2).contiguous()
-        eda, edb = mref.wavefront_matmul_ref_bwd(a, w, act, dc)
-        # the bound counts the function's work: dB contracts the cap
-        # rows, not the zero rows that pad them
-        cases.append((call, "da", (dc, bt, act), eda,
-                      lambda a=a, w=w, act=act, dc=dc:
-                      mref.wavefront_matmul_ref_bwd(a, w, act, dc),
-                      (dc, bt, act)))
-        cases.append((call, "db", (at, dcm, every), edb, None,
-                      (a.transpose(-1, -2), dc, every)))
-    prod_rows = []
-    for call, prod, args, exp, plain, work in cases:
-        got = mops.wavefront_matmul(*args)
-        torch.cuda.synchronize()
-        tol = mops.TOLERANCE[bf]
-        if prod == "db":
-            tol = (tol[0] * cap ** 0.5, tol[1])
-        err = within(got, exp, tol)
-        kern = lambda args=args: mops.wavefront_matmul(*args)
-        lib = lambda args=args: torch.bmm(args[0], args[1])
-        ms = [graph_ms(kern)]
-        library_ms = graph_ms(lib)
-        plain_ms = (time_ms(plain, reps=3, rounds=3) if plain is not None
-                    else None)
-        ms.append(graph_ms(kern))
-        nbytes, flops = lm_work("wavefront_matmul", work)
-        t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
-        r = {"call": call, "product": prod,
-             "route": mops.route(args[0], args[1]),
-             "shape": [list(x.shape) for x in args[:2]],
-             "max_abs_err": err, "ms": statistics.median(ms),
-             "library_ms": library_ms, "plain_ms": plain_ms,
-             "bound_ms": max(t_b, t_f) * 1e3,
-             "bound_by": "bytes" if t_b >= t_f else "operations"}
-        prod_rows.append(r)
-        log(f"[train-timing] wavefront_matmul {call} {prod} {r['shape']}: "
-            f"{r['route']} {r['ms']:.5f} ms, torch.bmm {library_ms:.5f} ms, "
-            + (f"plain (both products) {plain_ms:.4f} ms, " if plain_ms
-               else "")
-            + f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); max abs err "
-            f"{err:.3g}")
-    # the rows' launches are the main path's (``full``): the launches made
-    # here to compare and time are not counted there
-    first = prod_rows[0]
+        calls.append(grad_row(call, a, w, act, dc))
+        log(f"[train-timing] {grad_line(calls[-1])}")
+        del a, w, dc
+    # the row's launches are the main path's (``full``): the launches made
+    # here to compare and time are not counted there; one launch of the
+    # in-place kernel computes both products (``routes`` counts products)
+    first = calls[0]
     rows.append({"name": "wavefront_matmul_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/wavefront_matmul.cu",
                  "replaces": "src/repro/kernels/wavefront_matmul/kernel.py:52",
                  "gradient_of": "wavefront_matmul (dA = dC B^T and dB = A^T "
-                                "dC on the same kernel; XLA differentiated "
+                                "dC in one launch of wgmma_grad_kernel, A, B "
+                                "and dC read in place; XLA differentiated "
                                 "the reference's expert einsums)",
-                 "launches": sum(sum(v.values()) for v in
-                                 full["bwd"]["wavefront_matmul"].values()),
+                 "launches": full["mm_bwd_launches"],
                  "routes": full["bwd"]["wavefront_matmul"],
-                 "max_abs_err": max(r["max_abs_err"] for r in prod_rows),
-                 **{k: first[k] for k in ("ms", "library_ms", "bound_ms",
-                                          "bound_by", "shape")},
-                 "plain_ms": first["plain_ms"],
-                 "phase": "train", "call": "up da", "cases": prod_rows})
+                 "max_abs_err": max(r["max_abs_err"] for r in calls),
+                 **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by", "shape",
+                                          "previous_ms")},
+                 "phase": "train", "call": "up (dA and dB)", "cases": calls})
     return rows
+
+
+def grad_work(a, w, act) -> tuple:
+    """(bytes, FLOPs) of the expert GEMM's gradient: A's and dC's active
+    rows and B (of experts with a live tile) read once, dA and dB written
+    once; dA and dB's products over the active rows."""
+    e, m, k = a.shape
+    n = w.shape[-1]
+    rows = sum(min(128, m - 128 * i) for ex in act.tolist()
+               for i, on in enumerate(ex) if on)
+    experts = sum(any(ex) for ex in act.tolist())
+    nbytes = 2 * (rows * k + rows * n + experts * k * n + e * m * k
+                  + e * k * n) + 4 * act.numel()
+    return nbytes, 4 * rows * k * n
+
+
+def grad_row(call, a, w, act, dc) -> dict:
+    """The expert GEMM's whole gradient call (``matmul_bwd``) at one
+    training shape: routed to ``wgmma`` (the in-place kernel), held
+    against ``wavefront_matmul_ref_bwd`` and, with the ``"copies"`` route
+    (the previous design), against each other; the allocator's growth
+    across one call (``requested_bytes``) against dA + dB + the tile
+    flags; then timed by CUDA graph in turns: the call on ``wgmma`` (one
+    launch), on ``"copies"`` (from the same untransposed A, B and dC), as
+    two launches, each product alone, the library pair
+    ``torch.bmm(dc, w.mT)`` + ``torch.bmm(a.mT, dc)`` on views, ``wgmma``
+    again; the plain version eagerly; the pair's bound."""
+    import torch
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    routed = mops.route_bwd(a, w, dc)
+    if routed != ("wgmma", "wgmma"):
+        raise AssertionError(f"the gradient at {call} routes to {routed}")
+    m = a.shape[-2]
+    tol = mops.TOLERANCE[a.dtype]
+    tol_db = (tol[0] * m ** 0.5, tol[1])
+    dev = a.device
+    eda, edb = mref.wavefront_matmul_ref_bwd(a, w, act, dc)
+    torch.cuda.synchronize()
+    key = "requested_bytes.all"
+    base = torch.cuda.memory_stats(dev)[f"{key}.current"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    da, db = mops.matmul_bwd(a, w, act, dc)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_stats(dev)[f"{key}.peak"] - base
+    allowed = (da.numel() + db.numel()) * da.element_size() \
+        + 4 * act.numel() * (act.dtype != torch.int32)
+    if growth > allowed:
+        raise AssertionError(f"the gradient at {call} allocated {growth} "
+                             f"bytes, beyond dA + dB + flags {allowed}")
+    err = max(within(da, eda, tol), within(db, edb, tol_db))
+    cda, cdb = mops.run_bwd_route("copies", a, w, act, dc)
+    torch.cuda.synchronize()
+    within(cda, da, tol)
+    within(cdb, db, tol_db)
+    del eda, edb, cda, cdb, da, db
+    bwd = lambda name, prods=mops.BWD_PRODUCTS: (
+        lambda: mops.run_bwd_route(name, a, w, act, dc, prods))
+    fns = {"wgmma": lambda: mops.matmul_bwd(a, w, act, dc),
+           "copies": bwd("copies"),
+           "two_launches": lambda: (bwd("wgmma", ("da",))(),
+                                    bwd("wgmma", ("db",))()),
+           "da": bwd("wgmma", ("da",)), "db": bwd("wgmma", ("db",)),
+           "library": lambda: (torch.bmm(dc, w.mT), torch.bmm(a.mT, dc))}
+    ms = {k: graph_ms(fn) for k, fn in fns.items()}
+    again = graph_ms(fns["wgmma"])
+    eager = time_ms(fns["wgmma"], reps=20, rounds=3)
+    plain_ms = time_ms(lambda: mref.wavefront_matmul_ref_bwd(a, w, act, dc),
+                       reps=3, rounds=3)
+    nbytes, flops = grad_work(a, w, act)
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_S
+    return {"call": call, "route": "wgmma",
+            "shape": [list(a.shape), list(w.shape)],
+            "max_abs_err": err, "ms": statistics.median([ms["wgmma"], again]),
+            "ms_runs": [ms["wgmma"], again], "eager_ms": eager,
+            "previous_ms": ms["copies"], "two_launches_ms": ms["two_launches"],
+            "products_ms": {"da": ms["da"], "db": ms["db"]},
+            "library_ms": ms["library"], "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bound_bytes": nbytes, "flops": flops,
+            "alloc_growth": growth, "alloc_allowed": allowed}
+
+
+def grad_line(r: dict) -> str:
+    return (f"wavefront_matmul gradient {r['call']} {r['shape']} (dA and "
+            f"dB), by CUDA graph: wgmma (one launch) {r['ms']:.5f} ms "
+            f"(runs {r['ms_runs'][0]:.5f}, {r['ms_runs'][1]:.5f}; eager "
+            f"{r['eager_ms']:.5f}), copies (the previous design) "
+            f"{r['previous_ms']:.5f} ms, two launches "
+            f"{r['two_launches_ms']:.5f} ms, dA alone "
+            f"{r['products_ms']['da']:.5f}, dB alone "
+            f"{r['products_ms']['db']:.5f}, torch.bmm pair on views "
+            f"{r['library_ms']:.5f} ms; plain {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); allocator growth "
+            f"{r['alloc_growth']} bytes (dA + dB + flags "
+            f"{r['alloc_allowed']}); max abs err {r['max_abs_err']:.3g}")
 
 
 def serve_reference(dev) -> dict:
@@ -3147,8 +3256,8 @@ def train_family_full(dev, gpu: str, arch: str) -> dict:
             "wavefront_matmul": {"wgmma": 0, "small_m": 0, "simt": 0}}
     want_bwd = {"flash_attention": {k: {"wgmma": n_bwd, "simt": 0}
                                     for k in ("dq", "dkdv")},
-                "wavefront_matmul": {p: {"wgmma": 0, "small_m": 0,
-                                         "simt": 0} for p in ("da", "db")}}
+                "wavefront_matmul": {p: mm_bwd_routes()
+                                     for p in ("da", "db")}}
     if routes != want or bwd != want_bwd:
         raise AssertionError(f"{arch} training launches by route {routes}, "
                              f"backward {bwd}; expected {want}, {want_bwd}")
@@ -3446,6 +3555,7 @@ def mesh_train(dev, gpu: str, mesh, procs: list, out: pathlib.Path) -> dict:
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
     routes, bwd = route_counts(), bwd_counts()
+    mm_launches = lm_counters()["wavefront_matmul"].backward_launches
     loss = float(got["loss"])
     if not (np.isfinite(loss) and float(_whole(metrics["finite"])) == 1.0):
         raise AssertionError(f"the partitioned train step's loss is {loss}")
@@ -3468,8 +3578,8 @@ def mesh_train(dev, gpu: str, mesh, procs: list, out: pathlib.Path) -> dict:
                                         "simt": 0}}
     want_bwd = {"flash_attention": {k: {"wgmma": blocks, "simt": 0}
                                     for k in ("dq", "dkdv")},
-                "wavefront_matmul": {p: {"wgmma": 3 * blocks, "small_m": 0,
-                                         "simt": 0} for p in ("da", "db")}}
+                "wavefront_matmul": {p: mm_bwd_routes(wgmma=3 * blocks)
+                                     for p in ("da", "db")}}
     if routes != want_routes or bwd != want_bwd:
         raise AssertionError(f"partitioned step launches by route {routes}, "
                              f"backward {bwd}; expected {want_routes}, "
@@ -3508,7 +3618,8 @@ def mesh_train(dev, gpu: str, mesh, procs: list, out: pathlib.Path) -> dict:
         f"{six:.6e}; ratio {flops / six:.4f}; traced in "
         f"{pred['lower_s']:.1f} s")
     del args, dargs, placed, metrics, opt_state
-    return {"routes": routes, "bwd": bwd, "argument_bytes": want,
+    return {"routes": routes, "bwd": bwd, "mm_bwd_launches": mm_launches,
+            "argument_bytes": want,
             "flops": flops, "six": six, "loss": loss, "peak": peak,
             "predicted": predicted, "temp_bytes": pmem["temp_bytes"]}
 
@@ -3760,11 +3871,14 @@ def mesh_phase(dev, gpu: str) -> dict:
             "examples": examples, "dryrun": recs, "decode": decoded}
 
 
-def add_path(row: dict, path: str, routes: dict) -> None:
+def add_path(row: dict, path: str, routes: dict,
+             launches: int | None = None) -> None:
     """One more path's launches (by route, or by kernel and route) into a
-    kernels-line row: under ``paths``, in ``launches`` and ``routes``."""
-    n = sum(sum(v.values()) if isinstance(v, dict) else v
-            for v in routes.values())
+    kernels-line row: under ``paths``, in ``launches`` and ``routes``;
+    ``launches``, where given, the launches (``routes`` then counts what
+    they computed, as the gradient's products)."""
+    n = launches if launches is not None else sum(
+        sum(v.values()) if isinstance(v, dict) else v for v in routes.values())
     row["paths"][path] = n
     row["launches"] += n
     for k, v in routes.items():
@@ -3845,20 +3959,9 @@ def suite_ab(parent: str) -> int:
     port (``PARENT``, a checkout's root) and on this one, in turns
     (parent, this, this, parent), each in its own process on the same
     card; prints each run and the medians."""
-    runs = []
-    for label, root in (("parent", parent), ("this", str(ROOT)),
-                        ("this", str(ROOT)), ("parent", parent)):
-        p = subprocess.run([sys.executable, str(pathlib.Path(__file__)
-                                                .resolve()),
-                            "--suite-time", str(pathlib.Path(root) / "src")],
-                           capture_output=True, text=True, timeout=900)
-        line = [x for x in p.stdout.splitlines() if x.startswith("{")]
-        if p.returncode != 0 or not line:
-            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
-            return p.returncode or 1
-        r = json.loads(line[-1])
-        runs.append((label, r))
-        log(f"[suite-ab] {label} ({root}): run_program {r['us_per_step']:.2f}"
+    runs = turns("--suite-time", parent, str(ROOT))
+    for label, r in runs:
+        log(f"[suite-ab] {label}: run_program {r['us_per_step']:.2f}"
             f" us a step ({r['run_program_steps']} steps, "
             f"{r['run_program_s']:.3f}s); fleet walls {r['fleet_s']}")
     med = {}
@@ -3874,6 +3977,142 @@ def suite_ab(parent: str) -> int:
                   for c, v in med["this"]["fleet_s"].items()))
     print(gpu_line(), flush=True)
     print(json.dumps({"suite_ab": med, "runs": runs}), flush=True)
+    return 0
+
+
+#: granite-moe-3b-a800m's expert GEMMs in phase 6's training, (call, E,
+#: capacity, K, N): 8 x 511 tokens x top-8 over 40 experts
+GRAD_CALLS = (("up", 40, 818, 1536, 512), ("down", 40, 818, 512, 1536))
+
+
+def grad_time(dev) -> dict:
+    """``--grad-time SRC``: the whole gradient call of the tree at ``SRC``
+    (``ops.matmul_bwd``, whatever it launches and copies), bf16, every
+    tile active, at :data:`GRAD_CALLS`: device time by CUDA graph, eager
+    time by CUDA events, and the allocator's requested bytes across one
+    call beyond its inputs.  Uses only entry points that every tree of
+    the port since training has, so ``--grad-ab`` can run it on an older
+    tree."""
+    import torch
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    g = torch.Generator(device=dev).manual_seed(13)
+    rn = lambda *shape, scale=1.0: (torch.randn(shape, generator=g,
+                                                device=dev) * scale) \
+        .to(torch.bfloat16)
+    out = {}
+    for call, e, cap, kk, nn in GRAD_CALLS:
+        a, w, dc = rn(e, cap, kk), rn(e, kk, nn, scale=kk ** -0.5), \
+            rn(e, cap, nn)
+        act = torch.ones((e, -(-cap // 128)), dtype=torch.int32, device=dev)
+        fn = lambda: mops.matmul_bwd(a, w, act, dc)
+        fn()
+        torch.cuda.synchronize()
+        key = "requested_bytes.all"
+        base = torch.cuda.memory_stats(dev)[f"{key}.current"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = fn()
+        torch.cuda.synchronize()
+        growth = torch.cuda.memory_stats(dev)[f"{key}.peak"] - base
+        del got
+        out[call] = {"graph_ms": graph_ms(fn), "eager_ms": time_ms(
+            fn, reps=20, rounds=5), "alloc_growth": growth,
+            "outputs": (a.numel() + w.numel()) * 2,
+            "backward_by_route": mops.wavefront_matmul.backward_by_route}
+    return out
+
+
+def grad_rows() -> int:
+    """``--grad-rows``: phase 6's gradient rows alone (:func:`grad_row`
+    at :data:`GRAD_CALLS`), without the rest of the run."""
+    import torch
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for call, e, cap, kk, nn in GRAD_CALLS:
+        rn = lambda *shape, scale=1.0: (torch.randn(
+            shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+        a, w, dc = rn(e, cap, kk), rn(e, kk, nn, scale=kk ** -0.5), \
+            rn(e, cap, nn)
+        act = torch.ones((e, -(-cap // 128)), dtype=torch.int32, device=dev)
+        rows.append(grad_row(call, a, w, act, dc))
+        log(f"[grad-rows] {grad_line(rows[-1])}")
+    print(gpu_line(), flush=True)
+    print(json.dumps({"grad_rows": rows}), flush=True)
+    return 0
+
+
+def train_time(dev) -> dict:
+    """``--train-time SRC``: phase 6's full-width granite training
+    (:data:`TRAIN`, through ``launch.train.main``) on the tree at ``SRC``:
+    seconds a step (median of steps 2 to the last) and each step's."""
+    from repro_torch.launch import train
+    t = TRAIN
+    rec = {}
+    train.main(["--arch", t["arch"], "--batch", str(t["batch"]), "--seq",
+                str(t["seq"]), "--steps", str(t["steps"]), "--seed",
+                str(t["seed"]), "--log-every", "1", "--device", str(dev)],
+               record=rec)
+    steps = [r["seconds"] for r in rec["steps"]]
+    return {"step_s": statistics.median(steps[1:]), "steps": steps}
+
+
+def turns(mode: str, parent: str, this: str) -> list:
+    """``mode`` (``--suite-time``, ``--grad-time`` or ``--train-time``)
+    on the port of an older checkout (``parent``, its root) and on this
+    one (``this``), each in its own process, in turns (parent, this,
+    this, parent): the runs' results, labelled."""
+    runs = []
+    for label, root in (("parent", parent), ("this", this),
+                        ("this", this), ("parent", parent)):
+        p = subprocess.run([sys.executable, str(pathlib.Path(__file__)
+                                                .resolve()),
+                            mode, str(pathlib.Path(root) / "src")],
+                           capture_output=True, text=True, timeout=900)
+        line = [x for x in p.stdout.splitlines() if x.startswith("{")]
+        if p.returncode != 0 or not line:
+            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"{mode} on {root} failed")
+        runs.append((label, json.loads(line[-1])))
+    return runs
+
+
+def grad_ab(parent: str, this: str) -> int:
+    """``--grad-ab PARENT [THIS]``: :func:`grad_time` in turns
+    (:func:`turns`); prints each run and the medians."""
+    runs = turns("--grad-time", parent, this)
+    for label, r in runs:
+        for call, c in r.items():
+            log(f"[grad-ab] {label} {call}: {c['graph_ms']:.5f} ms "
+                f"by CUDA graph, {c['eager_ms']:.5f} ms eager, allocator "
+                f"growth {c['alloc_growth']} bytes (outputs "
+                f"{c['outputs']}); launches by route "
+                f"{c['backward_by_route']}")
+    med = {label: {call: {k: statistics.median(r[call][k] for lab, r in runs
+                                              if lab == label)
+                          for k in ("graph_ms", "eager_ms")}
+                   for call in runs[0][1]}
+           for label in ("parent", "this")}
+    log(f"[grad-ab] medians: {json.dumps(med)}")
+    print(gpu_line(), flush=True)
+    print(json.dumps({"grad_ab": med, "runs": runs}), flush=True)
+    return 0
+
+
+def train_ab(parent: str, this: str) -> int:
+    """``--train-ab PARENT [THIS]``: :func:`train_time` in turns
+    (:func:`turns`); prints each run and the medians."""
+    runs = turns("--train-time", parent, this)
+    for label, r in runs:
+        log(f"[train-ab] {label}: {r['step_s']:.4f} s a step (median of "
+            f"steps 2-{len(r['steps'])}); steps {r['steps']}")
+    med = {label: statistics.median(r["step_s"] for lab, r in runs
+                                    if lab == label)
+           for label in ("parent", "this")}
+    log(f"[train-ab] medians: parent {med['parent']:.4f} s, this "
+        f"{med['this']:.4f} s a step "
+        f"({100 * (med['this'] / med['parent'] - 1):+.2f} %)")
+    print(gpu_line(), flush=True)
+    print(json.dumps({"train_ab": med, "runs": runs}), flush=True)
     return 0
 
 
@@ -3894,6 +4133,22 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--suite-ab"]:
         return suite_ab(argv[1])
+    if argv[:1] == ["--grad-time"]:
+        sys.path.insert(0, argv[1])
+        import torch
+        print(json.dumps(grad_time(torch.device("cuda", 0))), flush=True)
+        return 0
+    if argv[:1] == ["--grad-ab"]:
+        return grad_ab(argv[1], argv[2] if len(argv) > 2 else str(ROOT))
+    if argv[:1] == ["--grad-rows"]:
+        return grad_rows()
+    if argv[:1] == ["--train-time"]:
+        sys.path.insert(0, argv[1])
+        import torch
+        print(json.dumps(train_time(torch.device("cuda", 0))), flush=True)
+        return 0
+    if argv[:1] == ["--train-ab"]:
+        return train_ab(argv[1], argv[2] if len(argv) > 2 else str(ROOT))
     try:
         import torch
     except ImportError:
@@ -3924,8 +4179,9 @@ def main(argv) -> int:
     for kernel, fn, regs, spill, smem in ptxas_report(build.LOGS):
         log(f"[ptxas] {kernel}: {fn}: {regs} registers, {spill}, static "
             f"shared memory {smem} bytes")
-        # the attention backward's wgmma kernels are sized not to spill
-        if fn.startswith("fa_bwd_") and "wgmma" in fn and spill and \
+        # the backward's wgmma kernels are sized not to spill
+        if (fn.startswith("fa_bwd_") and "wgmma" in fn
+                or fn.startswith("wgmma_grad_kernel")) and spill and \
                 re.search(r"[1-9]\d* bytes spill", spill):
             raise AssertionError(f"{fn} spills: {spill}")
 
@@ -4024,7 +4280,8 @@ def main(argv) -> int:
     mm["paths"] = {f"serve {SERVE['arch']}": mm["launches"]}
     mm_bwd["paths"] = {f"train {TRAIN['arch']}": mm_bwd["launches"]}
     add_path(mm, path, meshed["routes"]["wavefront_matmul"])
-    add_path(mm_bwd, path, meshed["bwd"]["wavefront_matmul"])
+    add_path(mm_bwd, path, meshed["bwd"]["wavefront_matmul"],
+             launches=meshed["mm_bwd_launches"])
     add_path(attn, path, meshed["routes"]["flash_attention"])
     add_path(bwd, path, meshed["bwd"]["flash_attention"])
     # and its partitioned decode (counted from 0 around it)

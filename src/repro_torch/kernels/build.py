@@ -62,7 +62,9 @@ _SIGNATURES = {
                     EXACT_FLAGS),
     "wavefront_matmul": ({"lm_wavefront_matmul": _GEMM + [_I, _P],
                           "lm_wavefront_matmul_small_m": _GEMM + [_I, _P],
-                          "lm_wavefront_matmul_wgmma": _GEMM + [_P]},
+                          "lm_wavefront_matmul_wgmma": _GEMM + [_P],
+                          "lm_wavefront_matmul_grad_wgmma":
+                              [_P] * 6 + [_LL] * 4 + [_I, _P]},
                          TMA_FLAGS),
     "flash_attention": ({"lm_flash_attention":
                              [_P] * 6 + [_LL] * 6

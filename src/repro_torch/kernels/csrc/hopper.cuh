@@ -3,7 +3,8 @@
 // - TMA: tensor maps made on the host by cuTensorMapEncodeTiled, which is
 //   taken from the driver through cudaGetDriverEntryPoint (so the kernels'
 //   libraries need no -lcuda), 3-D tile loads into shared memory that
-//   complete on an mbarrier, and 1-D bulk copies that do the same;
+//   complete on an mbarrier, 1-D bulk copies that do the same, and 3-D
+//   tile stores from shared memory in bulk groups;
 // - mbarriers: init, arrive, arrive with an expected byte count, and a
 //   parity wait that traps after about 20 s instead of spinning forever
 //   (a fault, not a hung card);
@@ -139,6 +140,37 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 3-D TMA tile store from shared memory (written before by the generic
+// proxy: fence_proxy_async first), in a bulk group; elements past the
+// map's bounds are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int x, int y,
+                                             int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// Commit the bulk stores issued so far and wait until they have read
+// their shared memory.
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Make this thread's shared-memory writes visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier ``ID`` (1-15; 0 is __syncthreads) over ``N`` threads.
+template <int ID, int N>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {

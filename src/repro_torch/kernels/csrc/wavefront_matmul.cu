@@ -7,8 +7,8 @@
 // (one matrix per expert) runs every expert of a layer in one launch;
 // M, N and K may be ragged (the edge tiles are masked, nothing is padded).
 //
-// Three kernels, one C entry point each; ops.route picks one by an
-// explicit rule (never a fallback):
+// Three kernels of the product, one C entry point each; ops.route picks
+// one by an explicit rule (never a fallback):
 //
 // - "wgmma" (bf16, M > 16, TMA-legal operands).  Bound at the MoE's
 //   prefill shapes by the tensor cores and HBM about equally.  A block
@@ -33,6 +33,11 @@
 //   128 x 64 tile, a 16-deep K slab staged through shared memory.  It takes
 //   float32 at M > 16 (TF32 tensor cores would break float32's tolerance)
 //   and any operand TMA cannot take.
+//
+// A fourth kernel computes the gradient of the bf16 product in place
+// (lm_wavefront_matmul_grad_wgmma, ops.route_bwd's "wgmma"; see its
+// section below).  The gradient of other operands runs the three kernels
+// above on transposed and padded copies (ops.py).
 #include "hopper.cuh"
 #include "hopper_wgmma.cuh"
 
@@ -421,6 +426,207 @@ wgmma_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// ================================================== the gradient, "wgmma"
+//
+// dA = dC B^T under row_active and dB = A^T dC, both read from A, B and dC
+// where they lie: no operand is transposed, padded or masked into a copy.
+// A block owns a 128 x 256 tile of dA or of dB, and one launch may cover
+// both products (dA's blocks first, then dB's).  The forward's pipeline,
+// wider: one producer warp keeps TMA loads in flight through 4 stages of
+// 48 KB (64 x 64 boxes, 128-byte swizzle; one block an SM) and two
+// consumer warpgroups run wgmma.m64n256k16 on 64 rows each into float32,
+// rounded to bf16 once, then stored by TMA from shared memory.  A 128 x
+// 256 tile moves 48 KB a 64-deep stage for 4.2 MFLOP where the forward's
+// 128 x 128 moves 32 KB for 2.1.
+//
+// - dA (M x K, contracting N): dC is the K-major A operand exactly as the
+//   forward's A; B, stored (K, N) with N contiguous, is K-major for this
+//   product (wgmma's B transpose bit 0), its 256 rows four 64-row boxes.
+//   An inactive 128-row tile stores zeros and loads nothing.
+// - dB (K x N, contracting the M rows): A, stored (M, K) with K
+//   contiguous, is an MN-major A operand (the A transpose bit, which bf16
+//   from shared memory allows), one 64-column box a warpgroup; dC is the
+//   MN-major B, as the forward's B.  A 64-row stage of M inside an
+//   inactive tile is neither loaded nor multiplied (so an expert with no
+//   live tile writes zeros), and TMA's zero fill of the 3-D maps ends M
+//   inside each expert.
+//
+// Bound by the tensor cores and HBM about equally at the MoE's training
+// shapes (A, B and dC read once, dA and dB written once).
+
+constexpr int kGrBox = 64;                      // a box: 64 rows x 128 bytes
+constexpr int kGrBoxBytes = kGrBox * kGrBox * 2;
+constexpr int kGrBM = 128;                      // two consumer warpgroups
+constexpr int kGrBN = 256;                      // wgmma's widest N
+constexpr int kGrStageBytes = (kGrBM + kGrBN) / kGrBox * kGrBoxBytes;
+constexpr int kGrStages = 4;                    // 192 KB: one block an SM
+constexpr int kGrSmem = kGrStages * kGrStageBytes + 1024 + 2 * kGrStages * 8;
+static_assert(kGrBM * kGrBN * 2 <= kGrStages * kGrStageBytes,
+              "C's tile is staged in the ring");
+
+// One tile: the producer loads, per live stage, A's two 64-row (dA) or
+// 64-column (dB) boxes and B's four; the consumers multiply, then stage C
+// (``map_c``: dA's or dB's tensor map) in shared memory for TMA to store.
+template <bool kDB>
+__device__ __forceinline__ void grad_tile(
+    const CUtensorMap* map_x, const CUtensorMap* map_y,
+    const CUtensorMap* map_c, const int32_t* __restrict__ act, int e, int r0,
+    int c0, int depth, uint8_t* smem) {
+  using namespace hopper;
+  const int tid = threadIdx.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGrStages * kGrStageBytes);
+  uint64_t* empty = full + kGrStages;
+  if (tid == 0) {
+    for (int s = 0; s < kGrStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int stages = (depth + kGrBox - 1) / kGrBox;
+  // dB's stage kt lies in activity tile kt / 2: skipped where it is 0
+  auto live = [&](int kt) { return !kDB || act[kt >> 1] != 0; };
+
+  if (tid >= 128 * kWgConsumers) {             // the producer warp
+    if (tid == 128 * kWgConsumers) {
+      prefetch_map(map_x);
+      prefetch_map(map_y);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < stages; ++kt) {
+        if (!live(kt)) continue;
+        mbar_wait(&empty[s], ph ^ 1);
+        uint8_t* st = smem + s * kGrStageBytes;
+        mbar_expect_tx(&full[s], kGrStageBytes);
+        const int d0 = kt * kGrBox;
+        for (int h = 0; h < kGrBM / kGrBox; ++h) {
+          uint8_t* x = st + h * kGrBoxBytes;
+          if (kDB)    // A: (K cols, M rows) boxes
+            tma_load_3d(x, map_x, &full[s], r0 + h * kGrBox, d0, e);
+          else        // dC: (N cols, M rows) boxes
+            tma_load_3d(x, map_x, &full[s], d0, r0 + h * kGrBox, e);
+        }
+        for (int h = 0; h < kGrBN / kGrBox; ++h) {
+          uint8_t* y = st + (kGrBM / kGrBox + h) * kGrBoxBytes;
+          if (kDB)    // dC: (N cols, M rows) boxes
+            tma_load_3d(y, map_y, &full[s], c0 + h * kGrBox, d0, e);
+          else        // B: (N cols, K rows) boxes
+            tma_load_3d(y, map_y, &full[s], d0, c0 + h * kGrBox, e);
+        }
+        if (++s == kGrStages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  int s = 0, prev = -1;
+  uint32_t ph = 0;
+  for (int kt = 0; kt < stages; ++kt) {
+    if (!live(kt)) continue;
+    mbar_wait(&full[s], ph);
+    const uint8_t* a_t = smem + s * kGrStageBytes + wg * kGrBoxBytes;
+    const uint8_t* b_t = smem + s * kGrStageBytes + 2 * kGrBoxBytes;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGrBox / 16; ++kk) {
+      if (kDB)      // MN-major A and B: a k-step is 16 rows of 128 bytes
+        ss_m64n256k16<1, 1>(acc, desc_b128(a_t + 2048 * kk, kGrBoxBytes, 1024),
+                            desc_b128(b_t + 2048 * kk, kGrBoxBytes, 1024), 1);
+      else          // K-major A and B: a k-step is 32 bytes of each row
+        ss_m64n256k16<0, 0>(acc, desc_b128(a_t + 32 * kk, 16, 1024),
+                            desc_b128(b_t + 32 * kk, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                           // the previous stage's products
+    fence_regs(acc);
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+    if (++s == kGrStages) { s = 0; ph ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // both warpgroups are past their last product, so the ring is free: a
+  // warpgroup's 64 rows go into four 64-column boxes in TMA's 128-byte
+  // swizzle (the fragment's 8 rows a store land in 8 bank groups), and TMA
+  // stores them, leaving out rows and columns past C's edge
+  bar_sync<1, 128 * kWgConsumers>();
+  uint8_t* out = smem + wg * (kGrBN / kGrBox) * kGrBoxBytes;
+#pragma unroll
+  for (int j = 0; j < kGrBN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);   // rows 16 warp + lane / 4 (+8)
+    const int chunk = (col % 64) / 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = warp * 16 + lane / 4 + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + col / 64 * kGrBoxBytes + row * 128 +
+          ((chunk ^ (row & 7)) << 4) + (col % 8) * 2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  fence_proxy_async();
+  bar_sync<1, 128 * kWgConsumers>();
+  if (tid % 128 == 0) {
+    for (int box = 0; box < kGrBN / kGrBox; ++box)
+      tma_store_3d(map_c, out + box * kGrBoxBytes, c0 + box * kGrBox,
+                   r0 + wg * 64, e);
+    bulk_store_wait();
+  }
+}
+
+// blocks [0, da_blocks): dA tiles, (expert, row tile, column tile) with the
+// column tile fastest; then dB tiles, (expert, K tile, N tile) alike
+__global__ void __launch_bounds__(kWgThreads, 1)
+wgmma_grad_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_dc,
+                  const __grid_constant__ CUtensorMap map_da,
+                  const __grid_constant__ CUtensorMap map_db,
+                  const int32_t* __restrict__ active,
+                  __nv_bfloat16* __restrict__ da, int m, int n, int k,
+                  long long da_blocks) {
+  extern __shared__ uint8_t gr_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(gr_raw) + 1023) & ~uintptr_t(1023));
+  const int m_tiles = (m + kGrBM - 1) / kGrBM;
+  const long long blk = blockIdx.x;
+  if (blk < da_blocks) {
+    const int k_cols = (k + kGrBN - 1) / kGrBN;
+    const int tile = (int)(blk / k_cols % m_tiles);
+    const int e = (int)(blk / k_cols / m_tiles);
+    const int r0 = tile * kGrBM, c0 = (int)(blk % k_cols) * kGrBN;
+    if (active[(int64_t)e * m_tiles + tile] == 0) {   // no loads, zeros
+      __nv_bfloat16* c = da + (int64_t)e * m * k;
+      for (int i = threadIdx.x; i < kGrBM * kGrBN / 2; i += kWgThreads) {
+        const int r = r0 + i / (kGrBN / 2), col = c0 + 2 * (i % (kGrBN / 2));
+        if (r < m && col < k)
+          *reinterpret_cast<__nv_bfloat162*>(c + (int64_t)r * k + col) =
+              __floats2bfloat162_rn(0.0f, 0.0f);
+      }
+      return;
+    }
+    grad_tile<false>(&map_dc, &map_b, &map_da, nullptr, e, r0, c0, n, smem);
+  } else {
+    const long long i = blk - da_blocks;
+    const int n_cols = (n + kGrBN - 1) / kGrBN;
+    const int k_rows = (k + kGrBM - 1) / kGrBM;
+    const int e = (int)(i / n_cols / k_rows);
+    grad_tile<true>(&map_a, &map_dc, &map_db, active + (int64_t)e * m_tiles,
+                    e, (int)(i / n_cols % k_rows) * kGrBM,
+                    (int)(i % n_cols) * kGrBN, m, smem);
+  }
+}
+
 }  // namespace
 
 extern "C" int lm_wavefront_matmul(const void* a, const void* b,
@@ -477,4 +683,46 @@ extern "C" int lm_wavefront_matmul_small_m(const void* a, const void* b,
   if (bf16)
     return dispatch_small_m<__nv_bfloat16>(a, b, active, c, batch, m, n, k, s);
   return dispatch_small_m<float>(a, b, active, c, batch, m, n, k, s);
+}
+
+// The gradient in place: ``which`` bit 0 computes dA, bit 1 dB, in one
+// launch.  bf16 only; the caller has checked TMA's rules for A, B and dC
+// (16-byte-aligned bases, K % 8 == 0, N % 8 == 0; dA and dB are fresh)
+// and that M, N, K > 0.  Autograd's backward thread may have no current
+// context yet: cudaSetDevice makes the device's primary context current,
+// without which cuTensorMapEncodeTiled encodes no map.
+extern "C" int lm_wavefront_matmul_grad_wgmma(
+    const void* a, const void* b, const void* dc, const void* active,
+    void* da, void* db, long long batch, long long m, long long n,
+    long long k, int which, void* stream) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+  // dA has A's geometry and dB B's; a product not asked for gets a map of
+  // its operand, which it never stores to
+  CUtensorMap map_a, map_b, map_dc, map_da, map_db;
+  if (!hopper::make_map_3d(&map_a, a, k, m, batch, k, m * k, kGrBox) ||
+      !hopper::make_map_3d(&map_b, b, n, k, batch, n, k * n, kGrBox) ||
+      !hopper::make_map_3d(&map_dc, dc, n, m, batch, n, m * n, kGrBox) ||
+      !hopper::make_map_3d(&map_da, (which & 1) ? da : a, k, m, batch, k,
+                           m * k, kGrBox) ||
+      !hopper::make_map_3d(&map_db, (which & 2) ? db : b, n, k, batch, n,
+                           k * n, kGrBox))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaFuncSetAttribute(wgmma_grad_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kGrSmem);
+    opted_in = true;
+  }
+  const long long mt = (m + kGrBM - 1) / kGrBM, kr = (k + kGrBM - 1) / kGrBM,
+                  kc = (k + kGrBN - 1) / kGrBN, nc = (n + kGrBN - 1) / kGrBN;
+  const long long da_blocks = (which & 1) ? batch * mt * kc : 0;
+  const long long blocks = da_blocks + ((which & 2) ? batch * kr * nc : 0);
+  if (blocks == 0 || blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  wgmma_grad_kernel<<<(unsigned)blocks, kWgThreads, kGrSmem,
+                      (cudaStream_t)stream>>>(
+      map_a, map_b, map_dc, map_da, map_db, (const int32_t*)active,
+      (__nv_bfloat16*)da, (int)m, (int)n, (int)k, da_blocks);
+  return (int)cudaGetLastError();
 }

@@ -13,18 +13,29 @@ a CUDA tensor always launches the routed kernel or raises:
   TF32 tensor cores would break float32's tolerance; ragged or misaligned
   rows TMA cannot read): the CUDA cores in float32.
 
-The gradient (:func:`matmul_bwd`) is two more launches of the same
-kernels: ``dA = dC @ B^T`` under the forward's ``row_active`` (an
-inactive tile's ``dA`` rows are zero, as its output was), and ``dB =
-A^T @ dC`` with ``dC`` zeroed on inactive tiles, its contracted axis
-(the forward's ``M``) padded with zero rows to a multiple of
-:data:`PAD_K`, so ``A^T``'s rows are TMA-legal and a bfloat16 ``dB``
-stays on ``wgmma``.  The product and its gradient are the operators
+The gradient (:func:`matmul_bwd`), ``dA = dC @ B^T`` under the forward's
+``row_active`` (an inactive tile's ``dA`` rows are zero, as its output
+was) and ``dB = A^T @ dC`` over the active tiles' rows, has its own rule,
+:func:`route_bwd`:
+
+* ``"wgmma"``: bfloat16 with TMA-legal ``A``, ``B`` and ``dC``; a fourth
+  kernel reads the three in place (no transposed, padded or masked copy)
+  and computes both products in one launch;
+* everything else (float32; operands TMA cannot take) runs the forward's
+  kernels on copies: ``B^T``, and ``dC`` zeroed on inactive tiles with
+  ``A^T`` beside it, their contracted axis (the forward's ``M``) padded
+  with zero rows to a multiple of :data:`PAD_K`; each product on
+  ``"small_m"`` or ``"simt"`` as :func:`route` picks for those copies.
+
+``"copies"``, the bfloat16 gradient's first design (the forward's
+``wgmma`` kernel on those copies), is kept for timing and checking the
+new kernel against (:func:`run_bwd_route`); :func:`route_bwd` never picks
+it.  The product and its gradient are the operators
 ``torch.ops.repro_torch.wavefront_matmul`` and ``.wavefront_matmul_bwd``
 (``torch.library.custom_op``), each with a fake implementation that
-allocates what the CUDA route allocates (the outputs; the backward's
-transposed and padded operands are the workspace :func:`workspace_bytes`
-names), a FLOP formula (the plain versions' products), and, once
+allocates what the CUDA route allocates (the outputs; the copies of the
+copy-based routes are the workspace :func:`workspace_bytes` names), a
+FLOP formula (the plain versions' products), and, once
 :func:`register_dtensor_rules` has run, a ``DTensor`` sharding rule.
 The backward is recorded only when a gradient is wanted, so a run under
 ``no_grad`` (the serve) launches what it launched before.  On a CPU
@@ -48,7 +59,11 @@ TOLERANCE = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 ROUTES = ("wgmma", "small_m", "simt")
 #: the backward's two products, counted apart from the forward's
 BWD_PRODUCTS = ("da", "db")
-#: ``dB``'s contracted axis is padded to a multiple of this many rows:
+#: the gradient's routes, by product: ``"wgmma"`` the in-place kernel;
+#: ``"copies"`` the forward's ``wgmma`` kernel on copies (named only);
+#: ``"small_m"``, ``"simt"`` the forward's kernels on copies
+BWD_ROUTES = ("wgmma", "copies", "small_m", "simt")
+#: the copies' contracted axis is padded to a multiple of this many rows:
 #: 16-byte rows of ``A^T`` for bfloat16 (and float32)
 PAD_K = 8
 #: rows per expert up to which ``small_m`` takes the product
@@ -71,14 +86,37 @@ def route(a: torch.Tensor, b: torch.Tensor) -> str:
     """The kernel that computes ``a @ b``: ``"small_m"``, ``"wgmma"`` or
     ``"simt"`` (see the module docstring).  A pure function of the
     operands' type, shape, layout and alignment."""
-    m, k = a.shape[-2], a.shape[-1]
-    legal = build.tma_legal(a, b)
+    return _route(a.shape[-2], a.shape[-1], a.dtype, build.tma_legal(a, b))
+
+
+def _route(m: int, k: int, dtype, legal: bool) -> str:
+    """:func:`route` for ``m`` rows contracting ``k``, given whether TMA
+    can read both operands."""
     if legal and m <= SMALL_M \
-            and small_m_smem(m, k, a.element_size()) <= SMEM_LIMIT:
+            and small_m_smem(m, k, dtype.itemsize) <= SMEM_LIMIT:
         return "small_m"
-    if legal and a.dtype == torch.bfloat16:
+    if legal and dtype == torch.bfloat16:
         return "wgmma"
     return "simt"
+
+
+def route_bwd(a: torch.Tensor, b: torch.Tensor,
+              dc: torch.Tensor) -> tuple[str, str]:
+    """The routes of the gradient's products ``(dA, dB)`` (see the
+    module docstring): ``("wgmma", "wgmma")`` for bfloat16 with TMA-legal
+    ``a``, ``b`` and ``dc``; else, for each product, the forward's rule
+    on its copies (``dC`` and ``B^T``; ``A^T`` and the masked ``dC``,
+    padded to :data:`PAD_K` rows, fresh and so aligned), where
+    ``"small_m"`` or ``"simt"``.  A pure function of the operands' type,
+    shape, layout and alignment; never ``"copies"``."""
+    if a.dtype == torch.bfloat16 and build.tma_legal(a, b, dc):
+        return "wgmma", "wgmma"
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    el = a.element_size()
+    mp = -(-m // PAD_K) * PAD_K
+    da = _route(m, n, a.dtype, build.tma_legal(dc) and k * el % 16 == 0)
+    db = _route(k, mp, a.dtype, n * el % 16 == 0)
+    return tuple("simt" if r == "wgmma" else r for r in (da, db))
 
 
 def wavefront_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -127,7 +165,7 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
                dc: torch.Tensor):
     """``(dA, dB)`` of :func:`wavefront_matmul` at output gradient ``dc``.
     A CPU or ``meta`` tensor takes :func:`.ref.wavefront_matmul_ref_bwd`; a CUDA
-    tensor launches the kernel twice (the module docstring) or raises."""
+    tensor launches the routes :func:`route_bwd` picks or raises."""
     _check(a, b, row_active)
     if dc.shape != a.shape[:-1] + b.shape[-1:]:
         raise ValueError(f"dc has shape {tuple(dc.shape)}")
@@ -140,9 +178,72 @@ def _matmul_bwd_op(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
                    dc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if build.plain(a):
         return wavefront_matmul_ref_bwd(a, b, row_active, dc)
+    a, b = a.contiguous(), b.contiguous()
     dc = dc.to(a.dtype).contiguous()
+    routes = route_bwd(a, b, dc)
+    if routes[0] == "wgmma":
+        return _grad_wgmma(a, b, row_active, dc, BWD_PRODUCTS)
+    return _grad_copies(a, b, row_active, dc, routes)
+
+
+def run_bwd_route(name: str, a: torch.Tensor, b: torch.Tensor,
+                  row_active: torch.Tensor, dc: torch.Tensor,
+                  products=BWD_PRODUCTS):
+    """The gradient on CUDA tensors by route ``name``: ``"wgmma"`` (only
+    the products named in ``products``, in one launch; the others
+    ``None``) or ``"copies"`` (the first design: the forward's
+    :func:`route` for each copy, ``"wgmma"`` counted as ``"copies"``).
+    Raises if the route cannot take the operands.  :func:`matmul_bwd`
+    takes :func:`route_bwd`'s choice; a caller may name a route to hold
+    or time one design against another."""
+    _check(a, b, row_active)
+    a, b = a.contiguous(), b.contiguous()
+    dc = dc.to(a.dtype).contiguous()
+    if name == "wgmma":
+        return _grad_wgmma(a, b, row_active, dc, tuple(products))
+    if name == "copies":
+        return _grad_copies(a, b, row_active, dc, None)
+    raise ValueError(f"unknown gradient route {name!r}; run_bwd_route "
+                     f"takes 'wgmma' or 'copies'")
+
+
+def _grad_wgmma(a, b, row_active, dc, products):
+    """The in-place kernel: ``products`` of ``("da", "db")`` in one
+    launch; each counted on ``"wgmma"``."""
+    _device(a, b, row_active, dc)
+    if a.dtype != torch.bfloat16 or not build.tma_legal(a, b, dc):
+        raise ValueError("the gradient's route wgmma takes bfloat16 "
+                         "operands TMA can read")
+    if dc.shape != a.shape[:-1] + b.shape[-1:]:
+        raise ValueError(f"dc has shape {tuple(dc.shape)}")
+    da = torch.empty_like(a) if "da" in products else None
+    db = torch.empty_like(b) if "db" in products else None
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    if 0 in (m, n, k):                 # nothing to contract: zeros
+        return tuple(x.zero_() if x is not None else x for x in (da, db))
+    act = row_active.to(torch.int32).contiguous()
+    which = ("da" in products) | ("db" in products) << 1
+    err = build.entry("wavefront_matmul", "lm_wavefront_matmul_grad_wgmma")(
+        a.data_ptr(), b.data_ptr(), dc.data_ptr(), act.data_ptr(),
+        da.data_ptr() if da is not None else None,
+        db.data_ptr() if db is not None else None,
+        a.shape[0] if a.dim() == 3 else 1, m, n, k, which,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    wavefront_matmul.backward_launches += 1
+    for p in products:
+        wavefront_matmul.backward_by_route[p]["wgmma"] += 1
+    build.check(err, "wavefront_matmul gradient (wgmma)")
+    return da, db
+
+
+def _grad_copies(a, b, row_active, dc, routes):
+    """The forward's kernels on copies: ``dA = dC @ B^T`` and ``dB =
+    A^T @ dC``, ``dC`` masked and both padded to :data:`PAD_K` rows
+    (module docstring); ``routes`` the products' routes, or ``None`` for
+    the forward's :func:`route` of each copy (the ``"copies"`` route)."""
     bt = b.transpose(-1, -2).contiguous()
-    da = _launch(route(dc, bt), dc, bt, row_active, "da")
+    da = _launch(routes[0] if routes else route(dc, bt), dc, bt, row_active,
+                 "da")
     m, k = a.shape[-2], a.shape[-1]
     mp = -(-m // PAD_K) * PAD_K
     keep = tile_mask(row_active, m)[..., None]
@@ -152,7 +253,8 @@ def _matmul_bwd_op(a: torch.Tensor, b: torch.Tensor, row_active: torch.Tensor,
     at[..., :m] = a.transpose(-1, -2)
     every = torch.ones(a.shape[:-2] + (-(-k // TILE_M),), dtype=torch.int32,
                        device=a.device)
-    db = _launch(route(at, dcm), at, dcm, every, "db")
+    db = _launch(routes[1] if routes else route(at, dcm), at, dcm, every,
+                 "db")
     return da, db
 
 
@@ -164,11 +266,16 @@ def _(a, b, row_active, dc):
 def workspace_bytes(op, a: torch.Tensor, b: torch.Tensor) -> int:
     """Bytes the CUDA route of ``op`` (the product or its gradient)
     allocates for itself and frees before it returns, for ``a`` and
-    ``b`` of any device (``meta`` included): the gradient's ``B^T``,
-    its masked ``dC`` (once as ``torch.where`` makes it, once padded to
+    ``b`` of any device (``meta`` included; ``dC``, of ``B``'s row
+    width, made contiguous by the operator).  The product: none.  The
+    gradient on ``"wgmma"`` (bfloat16, TMA-legal): none, as it reads A,
+    B, dC and the tile flags where they lie.  On copies: ``B^T``, the
+    masked ``dC`` (once as ``torch.where`` makes it, once padded to
     :data:`PAD_K` rows), ``A^T`` padded alike and the all-active tile
-    flags, counted as if all were live at once; the product none."""
+    flags, counted as if all were live at once."""
     if op is not torch.ops.repro_torch.wavefront_matmul_bwd.default:
+        return 0
+    if a.dtype == torch.bfloat16 and build.tma_legal(a, b):
         return 0
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
     e = a.shape[0] if a.dim() == 3 else 1
@@ -273,12 +380,10 @@ def run_route(name: str, a: torch.Tensor, b: torch.Tensor,
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             row_active: torch.Tensor, product: str | None = None):
     """:func:`run_route`, counted as the forward's launch or, with
-    ``product`` (``"da"`` or ``"db"``), as the backward's."""
+    ``product`` (``"da"`` or ``"db"``), as the backward's on copies
+    (the ``wgmma`` kernel there counted as ``"copies"``)."""
     _check(a, b, row_active)
-    if a.device.type != "cuda":
-        raise RuntimeError(f"no wavefront_matmul kernel for {a.device}")
-    if b.device != a.device or row_active.device != a.device:
-        raise ValueError("all operands must be on one device")
+    _device(a, b, row_active)
     a, b = a.contiguous(), b.contiguous()
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
     bf16 = a.dtype == torch.bfloat16
@@ -314,9 +419,17 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
         wavefront_matmul.by_route[name] += 1
     else:
         wavefront_matmul.backward_launches += 1
-        wavefront_matmul.backward_by_route[product][name] += 1
+        wavefront_matmul.backward_by_route[product][
+            "copies" if name == "wgmma" else name] += 1
     build.check(err, f"wavefront_matmul ({name})")
     return out
+
+
+def _device(a, *rest) -> None:
+    if a.device.type != "cuda":
+        raise RuntimeError(f"no wavefront_matmul kernel for {a.device}")
+    if any(t.device != a.device for t in rest):
+        raise ValueError("all operands must be on one device")
 
 
 def _check(a, b, row_active) -> None:
@@ -332,9 +445,10 @@ def _check(a, b, row_active) -> None:
 
 
 #: kernel launches made through this wrapper (the CPU path counts none),
-#: in all and by route; the backward's apart, by product and route
+#: in all and by route; the backward's apart (``"wgmma"``: one launch for
+#: both products), and by product and route
 wavefront_matmul.launches = 0
 wavefront_matmul.by_route = dict.fromkeys(ROUTES, 0)
 wavefront_matmul.backward_launches = 0
-wavefront_matmul.backward_by_route = {p: dict.fromkeys(ROUTES, 0)
+wavefront_matmul.backward_by_route = {p: dict.fromkeys(BWD_ROUTES, 0)
                                       for p in BWD_PRODUCTS}

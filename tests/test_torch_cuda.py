@@ -774,13 +774,14 @@ def test_flash_attention_autograd_on_cuda(dev):
 
 
 @pytest.mark.parametrize("dtype,e,m,k,n,da_route,db_route", [
-    # the granite training GEMMs: capacity 818 rows, A^T rows padded to 824
+    # the granite training GEMMs: capacity 818 rows, read in place
     (torch.bfloat16, 40, 818, 1536, 512, "wgmma", "wgmma"),
     (torch.bfloat16, 40, 818, 512, 1536, "wgmma", "wgmma"),
-    (torch.bfloat16, 5, 9, 48, 64, "small_m", "wgmma"),
+    (torch.bfloat16, 5, 9, 48, 64, "wgmma", "wgmma"),
     (torch.float32, 5, 9, 48, 64, "small_m", "simt"),
     (torch.float32, 3, 300, 160, 96, "simt", "simt"),
-    (torch.bfloat16, 3, 300, 100, 64, "simt", "wgmma")])
+    # K = 100: A's rows are not 16-byte rows, so the copies on simt
+    (torch.bfloat16, 3, 300, 100, 64, "simt", "simt")])
 def test_wavefront_matmul_gradient_each_route(dev, dtype, e, m, k, n,
                                               da_route, db_route):
     """Both gradient products on the kernel, counted apart by product and
@@ -807,6 +808,106 @@ def test_wavefront_matmul_gradient_each_route(dev, dtype, e, m, k, n,
     assert _within(da, eda, tol)
     assert _within(db, edb, (tol[0] * m ** 0.5, tol[1]))
     assert torch.count_nonzero(da[~mref.tile_mask(act, m)]) == 0
+
+
+def _grad_inputs(dev, e, m, k, n, seed, idle=True):
+    """bf16 A, B, dC and random ``row_active`` (expert 0 all live; with
+    ``idle``, the last expert none)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    a = torch.randn((e, m, k), generator=g, device=dev).to(bf)
+    b = (torch.randn((e, k, n), generator=g, device=dev) / k ** 0.5).to(bf)
+    dc = torch.randn((e, m, n), generator=g, device=dev).to(bf)
+    act = torch.randint(0, 2, (e, -(-m // 128)), generator=g, device=dev,
+                        dtype=torch.int32)
+    act[0] = 1
+    if idle and e > 1:
+        act[-1] = 0
+    return a, b, act, dc
+
+
+@pytest.mark.parametrize("e,m,k,n,idle", [
+    (40, 818, 1536, 512, False), (40, 818, 512, 1536, False),
+    (40, 818, 1536, 512, True), (5, 9, 48, 64, True),
+    (3, 300, 104, 64, True), (3, 300, 100, 64, True), (1, 130, 8, 8, False)])
+def test_wavefront_matmul_gradient_in_place(dev, e, m, k, n, idle):
+    """The routed gradient against the plain backward (granite's two
+    training shapes, ragged ones, random ``row_active``, an expert with no
+    live tile): inactive tiles' dA and the idle expert's dB exactly zero;
+    where the in-place kernel takes the operands, each product alone bit
+    for bit the one launch's, and the ``"copies"`` route (the previous
+    design) within ``TOLERANCE`` of it."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops, ref as mref
+    a, b, act, dc = _grad_inputs(dev, e, m, k, n, e + m + k + n, idle)
+    da, db = mops.matmul_bwd(a, b, act, dc)
+    eda, edb = mref.wavefront_matmul_ref_bwd(a, b, act, dc)
+    tol = mops.TOLERANCE[torch.bfloat16]
+    tol_db = (tol[0] * m ** 0.5, tol[1])
+    torch.cuda.synchronize()
+    assert _within(da, eda, tol) and _within(db, edb, tol_db)
+    assert torch.count_nonzero(da[~mref.tile_mask(act, m)]) == 0
+    if idle and e > 1:
+        assert torch.count_nonzero(db[-1]) == 0
+    if mops.route_bwd(a, b, dc)[0] != "wgmma":
+        assert k % 8                      # only the K = 100 case
+        return
+    alone_a, none_b = mops.run_bwd_route("wgmma", a, b, act, dc, ("da",))
+    none_a, alone_b = mops.run_bwd_route("wgmma", a, b, act, dc, ("db",))
+    cda, cdb = mops.run_bwd_route("copies", a, b, act, dc)
+    torch.cuda.synchronize()
+    assert none_a is None and none_b is None
+    assert torch.equal(alone_a, da) and torch.equal(alone_b, db)
+    assert _within(cda, da, tol) and _within(cdb, db, tol_db)
+
+
+def test_wavefront_matmul_gradient_launches_by_route(dev):
+    """One launch of the in-place kernel counts each product once on
+    ``wgmma``; the ``"copies"`` route two launches of the forward's
+    ``wgmma`` kernel, counted as ``"copies"``; the forward's counters do
+    not move."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    a, b, act, dc = _grad_inputs(dev, 4, 300, 64, 48, 3)
+    f = mops.wavefront_matmul
+
+    def moved(fn):
+        before = (f.launches, f.backward_launches,
+                  {p: dict(r) for p, r in f.backward_by_route.items()})
+        fn()
+        return (f.launches - before[0], f.backward_launches - before[1],
+                {p: {r: c - before[2][p][r] for r, c in v.items()
+                     if c != before[2][p][r]}
+                 for p, v in f.backward_by_route.items()})
+
+    one = {"da": {"wgmma": 1}, "db": {"wgmma": 1}}
+    assert moved(lambda: mops.matmul_bwd(a, b, act, dc)) == (0, 1, one)
+    assert moved(lambda: mops.run_bwd_route("wgmma", a, b, act, dc,
+                                            ("db",))) == \
+        (0, 1, {"da": {}, "db": {"wgmma": 1}})
+    assert moved(lambda: mops.run_bwd_route("copies", a, b, act, dc)) == \
+        (0, 2, {"da": {"copies": 1}, "db": {"copies": 1}})
+    ag, bg = a.clone().requires_grad_(), b.clone().requires_grad_()
+    assert moved(lambda: mops.wavefront_matmul(ag, bg, act).backward(dc)) \
+        == (1, 1, one)
+
+
+def test_wavefront_matmul_gradient_allocates_outputs_only(dev):
+    """At granite's up shape one call's allocator growth (requested
+    bytes) is dA + dB: no copy of A, B or dC, as ``workspace_bytes``
+    says."""
+    from repro_torch.kernels.wavefront_matmul import ops as mops
+    a, b, act, dc = _grad_inputs(dev, 40, 818, 1536, 512, 11, idle=False)
+    mops.matmul_bwd(a, b, act, dc)           # built and warm
+    torch.cuda.synchronize()
+    key = "requested_bytes.all"
+    base = torch.cuda.memory_stats(dev)[f"{key}.current"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    da, db = mops.matmul_bwd(a, b, act, dc)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_stats(dev)[f"{key}.peak"] - base
+    outputs = (da.numel() + db.numel()) * da.element_size()
+    assert growth <= outputs
+    assert mops.workspace_bytes(
+        torch.ops.repro_torch.wavefront_matmul_bwd.default, a, b) == 0
 
 
 def test_smoke_train_step_on_cuda_equals_cpu(dev):
