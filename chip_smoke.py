@@ -160,9 +160,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``training/reference_train.json`` (``train.held``), each run's
    attention launches by kernel and route read around it (bfloat16 on
    ``wgmma``, float32 on ``simt``, xlstm none); then each family at its
-   published widths and depth through ``train.main`` (bf16 compute, f32
-   master and AdamW state, remat, 8 x 512 tokens, seamless with 512
-   frames, internvl2 with 1,024 patches, 4 steps from seed 0), its
+   published widths and depth (xlstm at 8 of its 24 layers) through
+   ``train.main`` (bf16 compute, f32 master and AdamW state, remat, 8 x
+   512 tokens, seamless with 512 frames, internvl2 with 1,024 patches, 4
+   steps from seed 0), its
    counters zeroed just before and read just after: every attention
    forward and recompute on ``wgmma``, every backward on ``dq`` +
    ``dkdv`` of the ``wgmma`` route, no expert GEMM; losses and gradient
@@ -175,11 +176,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 9. the mesh on the card (``sharding/``, ``launch/mesh``, ``launch/specs``,
    ``launch/dryrun``), after the families' training: the dry run (``python
    -m repro_torch.launch.dryrun``, granite-moe-3b-a800m's ``train_4k`` and
-   ``decode_32k`` on both production meshes, and phase 6's train cell on
-   a (1, 1) mesh, each in its own process on the host's CPU, started
-   first: the step as a ``DTensor`` program on rank 0's ``meta`` shards)
-   exits 0 and its records' bytes a device, temp_bytes, one device's
-   FLOPs and collective bytes by kind are printed;
+   ``decode_32k`` and xlstm-350m's ``prefill_32k`` (32,768 decode steps,
+   counted by repetition) on both production meshes, and phase 6's train
+   cell on a (1, 1) mesh, each in its own process on the host's CPU,
+   started first: the step as a ``DTensor`` program on rank 0's ``meta``
+   shards) exits 0 and its records' bytes a device, temp_bytes, one
+   device's FLOPs, collective bytes by kind and the torch that counted
+   them (this host's) are printed;
    ``launch.mesh.make_debug_mesh()`` is a (1, 1) ``("data", "model")``
    mesh over a one-rank ``nccl`` group, and ``make_debug_mesh(data=2)``
    is refused with its recipe; granite's train cell at phase 6's shape
@@ -218,9 +221,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    step's launches are one more path (``train-mesh``) of the LM kernels'
    rows in the kernels line.
 
-The last two lines of standard output are the kernels' JSON and the
-device JSON ``{"ok": true, "device": {...}}``.  It imports nothing of
-JAX or of the JAX package ``repro``.
+Each phase prints its seconds, and the run's so far, on a ``[phase]``
+line once it ends.  The last two lines of standard output are the
+kernels' JSON and the device JSON ``{"ok": true, "device": {...}}``.
+It imports nothing of JAX or of the JAX package ``repro``.
 
 ``--grad-ab PARENT [THIS]`` times the expert GEMM's whole gradient call
 (``matmul_bwd``) at granite's two training shapes on an older checkout
@@ -239,6 +243,7 @@ parent), and prints each run and the medians.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -3092,12 +3097,16 @@ def serve_families(dev, gpu: str) -> dict:
 # internvl2)
 # ---------------------------------------------------------------------------
 
-#: each family at its published widths and depth: bf16 compute, f32
+#: each family at its published widths and depth (but ``layers``): bf16
+#: compute, f32
 #: master parameters and AdamW state, remat, 8 x 512 tokens (seamless
 #: also 512 frames, internvl2 1,024 patches), 4 steps from seed 0
 FAMILY_TRAIN = dict(archs=("zamba2-1p2b", "xlstm-350m",
                            "seamless-m4t-large-v2", "internvl2-2b"),
-                    batch=8, seq=512, steps=4, seed=0)
+                    batch=8, seq=512, steps=4, seed=0,
+                    # xlstm at 8 of its 24 layers (its one sLSTM among
+                    # them, layer 7), to keep the run within half its limit
+                    layers={"xlstm-350m": 8})
 
 
 def train_families_reference(dev, gpu: str) -> dict:
@@ -3229,14 +3238,18 @@ def _numel(tree) -> int:
 
 def train_family_full(dev, gpu: str, arch: str) -> dict:
     """Phase 8's main path for one family: ``launch.train.main`` at its
-    published widths and depth, its kernel counters zeroed just before
+    published widths and depth (``FAMILY_TRAIN["layers"]`` may cut the
+    depth), its kernel counters zeroed just before
     and read just after; then one more step profiled."""
     import torch
+    from repro_torch import configs
     from repro_torch.launch import train
     t = FAMILY_TRAIN
     argv = ["--arch", arch, "--batch", str(t["batch"]), "--seq",
             str(t["seq"]), "--steps", str(t["steps"]), "--seed",
             str(t["seed"]), "--log-every", "1", "--device", str(dev)]
+    if arch in t["layers"]:
+        argv += ["--layers", str(t["layers"][arch])]
     torch.cuda.reset_peak_memory_stats(dev)
     zero_lm_counters()
     rec = {}
@@ -3272,8 +3285,11 @@ def train_family_full(dev, gpu: str, arch: str) -> dict:
         log(f"[families-train] {cfg.name} step {r['step']}: loss "
             f"{r['loss']:.4f} grad_norm {r['grad_norm']:.4f} lr "
             f"{r['lr']:.3e} {r['seconds']:.3f}s ({gpu})")
+    full = configs.get(arch).n_layers
+    depth = " and depth" if cfg.n_layers == full else \
+        f", {cfg.n_layers} of its {full} layers"
     log(f"[families-train] {cfg.name} ({n_params / 1e9:.3f} B parameters) "
-        f"full width and depth, bf16 compute, f32 master and AdamW state, "
+        f"full width{depth}, bf16 compute, f32 master and AdamW state, "
         f"remat {cfg.remat}, {t['batch']} x {t['seq']} tokens{extra}, "
         f"{t['steps']} steps in {wall:.1f}s (init included): losses and "
         f"gradient norms finite, no step skipped; seconds a step (median "
@@ -3335,12 +3351,14 @@ def train_families(dev, gpu: str) -> dict:
     family at full width (its own main path), then the attention backward
     held and timed at the new shapes."""
     import torch
-    ref = train_families_reference(dev, gpu)
+    with phase("8 the smoke trainers"):
+        ref = train_families_reference(dev, gpu)
     runs = {}
     for arch in FAMILY_TRAIN["archs"]:
-        runs[arch] = train_family_full(dev, gpu, arch)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with phase(f"8 {arch}"):
+            runs[arch] = train_family_full(dev, gpu, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
     rows = []
     for call, q, k, v, do, lens, causal in family_bwd_cases(dev):
         row = dict(attn_bwd_row(q, k, v, do, lens, causal), call=call,
@@ -3364,7 +3382,8 @@ ALLOC_ROUND = 512
 ELASTIC_ARCH = "xlstm-350m"
 #: the dry run's cells, each in a process of its own on both meshes
 DRYRUN_CELLS = (("granite-moe-3b-a800m", "train_4k"),
-                ("granite-moe-3b-a800m", "decode_32k"))
+                ("granite-moe-3b-a800m", "decode_32k"),
+                ("xlstm-350m", "prefill_32k"))
 #: the dry run of phase 6's train cell on the card's (1, 1) mesh, whose
 #: arguments plus temp_bytes predict the partitioned step's peak
 PREDICT_ARGS = ("--mesh", "1x1", "--batch", str(TRAIN["batch"]), "--seq",
@@ -3401,11 +3420,13 @@ def start_dryruns(out: pathlib.Path) -> list:
     return procs
 
 
-def _wait(arch: str, shape: str, p) -> None:
+def _wait(arch: str, shape: str, p) -> str:
+    """The dry run's output, once it has exited 0."""
     text, _ = p.communicate(timeout=900)
     if p.returncode != 0:
         raise AssertionError(f"dryrun {arch} {shape} exited "
                              f"{p.returncode}: {text[-3000:]}")
+    return text
 
 
 def read_prediction(procs: list, out: pathlib.Path) -> dict:
@@ -3418,10 +3439,15 @@ def read_prediction(procs: list, out: pathlib.Path) -> dict:
 
 def finish_dryruns(procs: list, out: pathlib.Path, gpu: str) -> dict:
     """Each production dry run's exit (0, or the phase fails) and its
-    records: one device's bytes, FLOPs and collective bytes by kind."""
+    records: one device's bytes, FLOPs and collective bytes by kind, and
+    the torch that counted them (this host's); its own line for each (the
+    steps it counted by repetition, the buffers at its peak)."""
+    import torch
     recs = {}
     for arch, shape, p in procs[:len(DRYRUN_CELLS)]:
-        _wait(arch, shape, p)
+        for line in _wait(arch, shape, p).splitlines():
+            if line.startswith("OK "):
+                log(f"[mesh-dryrun] {line}")
         for mesh in ("16x16", "2x16x16"):
             rec = json.loads((out / f"{arch}__{shape}__{mesh}.json")
                              .read_text())
@@ -3430,6 +3456,9 @@ def finish_dryruns(procs: list, out: pathlib.Path, gpu: str) -> dict:
                                                 "total_bytes"}:
                 raise AssertionError(f"dryrun {arch} {shape} {mesh}: "
                                      f"collectives {coll}")
+            if rec["torch"] != torch.__version__ or not cost["flops"] > 0:
+                raise AssertionError(f"dryrun {arch} {shape} {mesh}: torch "
+                                     f"{rec['torch']}, flops {cost['flops']}")
             kinds = ", ".join(f"{k} {b:,} B in {coll['count'][k]}"
                               for k, b in coll["bytes"].items())
             log(f"[mesh-dryrun] {arch} {shape} on {mesh} ({rec['chips']} "
@@ -3438,8 +3467,9 @@ def finish_dryruns(procs: list, out: pathlib.Path, gpu: str) -> dict:
                 f"argument_bytes {mem['argument_bytes']:,} a device, "
                 f"output_bytes {mem['output_bytes']:,}, temp_bytes "
                 f"{mem['temp_bytes']:,}, flops {cost['flops']:.6e} (one "
-                f"device's), traced in {rec['lower_s']} s; collectives by "
-                f"kind: {kinds}; total {coll['total_bytes']:,} B ({gpu})")
+                f"device's), traced in {rec['lower_s']} s by torch "
+                f"{rec['torch']}; collectives by kind: {kinds}; total "
+                f"{coll['total_bytes']:,} B ({gpu})")
             recs[(shape, mesh)] = rec
     return recs
 
@@ -4116,6 +4146,21 @@ def train_ab(parent: str, this: str) -> int:
     return 0
 
 
+#: the run's start (:func:`phase`)
+START = time.perf_counter()
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print the seconds that what runs inside took, and the run's so
+    far, on a line of its own once it ends."""
+    t0 = time.perf_counter()
+    yield
+    now = time.perf_counter()
+    log(f"[phase] {name}: {now - t0:.1f} s (the run so far "
+        f"{now - START:.1f} s)")
+
+
 def gpu_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4172,7 +4217,8 @@ def main(argv) -> int:
 
     gpu = gpu_line()
     t0 = time.perf_counter()
-    build.build_all()
+    with phase("1 build"):
+        build.build_all()
     log(f"[build] nvcc sm_90a, {len(build.LOGS) or 'all'} kernels built "
         f"(one nvcc each, in parallel) and loaded in "
         f"{time.perf_counter() - t0:.1f}s ({build.BUILD_DIR})")
@@ -4185,13 +4231,19 @@ def main(argv) -> int:
                 re.search(r"[1-9]\d* bytes spill", spill):
             raise AssertionError(f"{fn} spills: {spill}")
 
-    worst = check_kernels(dev)
-    check_step_kernels(dev)
-    res = run_suite(dev)
-    tiers = run_tiers(dev, res)
-    fleet = run_fleet(dev, tiers)
-    serving = run_serving(dev, fleet)
-    profile_steps(dev)
+    with phase("2 kernels"):
+        worst = check_kernels(dev)
+        check_step_kernels(dev)
+    with phase("3 suite"):
+        res = run_suite(dev)
+    with phase("3b tiers"):
+        tiers = run_tiers(dev, res)
+    with phase("3c fleet"):
+        fleet = run_fleet(dev, tiers)
+    with phase("3d serving"):
+        serving = run_serving(dev, fleet)
+    with phase("4 step profile"):
+        profile_steps(dev)
     # the main path's launches: the interpreter and fleet_run phase's, the
     # compiled tiers', the scheduler's drains' and the optimized runs'
     # (each counted from 0 just before its own runs)
@@ -4206,33 +4258,38 @@ def main(argv) -> int:
                 for k in res["launches"]}
     routes = {k: {r: sum(p[1][k][r] for p in paths.values()) for r in v}
               for k, v in res["routes"].items()}
-    kernels = time_kernels(dev, worst, launches, routes)
+    with phase("4 timing"):
+        kernels = time_kernels(dev, worst, launches, routes)
     for k in kernels:
         k["paths"] = {name: p[0][k["name"]] for name, p in paths.items()}
 
-    check_lm_kernels(dev)
-    partial = check_partial(dev)
-    serve_reference(dev)
-    full = serve_full(dev, gpu)
-    kernels += lm_kernels_at_serve(dev, full)
-    del full                         # the serve's model is gone before phase 6
-    gc.collect()
-    torch.cuda.empty_cache()
+    with phase("5 LM serve"):
+        check_lm_kernels(dev)
+        partial = check_partial(dev)
+        serve_reference(dev)
+        full = serve_full(dev, gpu)
+        kernels += lm_kernels_at_serve(dev, full)
+        del full                     # the serve's model is gone before phase 6
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    check_lm_backward(dev)
-    train_reference(dev)
-    train_checkpoint(dev)
-    trained = train_full(dev, gpu)
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels += train_kernels(dev, trained)
+    with phase("6 LM training"):
+        check_lm_backward(dev)
+        train_reference(dev)
+        train_checkpoint(dev)
+        trained = train_full(dev, gpu)
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels += train_kernels(dev, trained)
     granite_train = trained["routes"]["flash_attention"]
     del trained
     gc.collect()
     torch.cuda.empty_cache()
 
-    fam = serve_families(dev, gpu)
-    fam_train = train_families(dev, gpu)
+    with phase("7 families' serves"):
+        fam = serve_families(dev, gpu)
+    with phase("8 families' training"):
+        fam_train = train_families(dev, gpu)
     # the attention's launches by path: each serve's and each trainer's
     # (each counted from 0 around its own run)
     attn = next(k for k in kernels if k["name"] == "flash_attention")
@@ -4271,7 +4328,8 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    meshed = mesh_phase(dev, gpu)
+    with phase("9 mesh"):
+        meshed = mesh_phase(dev, gpu)
     # phase 9's train step is one more path of the LM kernels (its
     # counters zeroed just before it and read just after)
     path = f"train-mesh {TRAIN['arch']}"

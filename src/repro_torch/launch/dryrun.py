@@ -35,9 +35,10 @@ reference's keys:
   operations allocated, less the outputs it made (:func:`record`);
 * ``cost.flops``: one rank's FLOPs: the products of its local operations
   (``torch.utils.flop_counter``'s formulas, the kernels' own among them),
-  of every layer.  XLA's count is one device's too, but it also counts
-  elementwise operations, and the reference's ``lax.scan`` over a
-  config's layers, counted once a loop body;
+  of every layer and every step of every loop.  XLA's count is one
+  device's too, but it also counts elementwise operations, and it counts
+  the body of each of the reference's ``lax.scan`` loops (a config's
+  layers, xlstm's sLSTM and prefill) once;
 * ``collectives``: ``bytes``, ``count`` and ``total_bytes`` by the
   reference's five kinds: each collective's result bytes on rank 0, as
   :func:`collective_bytes` sums HLO result shapes.  On a CPU mesh
@@ -48,18 +49,26 @@ reference's keys:
 * ``lower_s``: the traced call's seconds (DTensor's sharding decisions,
   made once an operation and its operands' specs, included); ``compile_s``,
   ``generated_code_bytes``, ``bytes_accessed`` and ``transcendentals``:
-  ``None`` (no code is generated; nothing counts the others).
+  ``None`` (no code is generated; nothing counts the others);
 
-A cell whose step is too long a Python loop to trace (:data:`UNTRACED`),
-or whose step stops, keeps the reference's error form, ``{"error":
-...}``.  :func:`collective_bytes`, the reference's parser of post-SPMD HLO
-text, is kept as the pure function it is.
+and ``torch``, the version that counted it.  A scan's steps
+(``models.scan_util.maybe_scan``) are all counted: those that record a
+gradient each traced, and of the others, once two consecutive steps
+count the same, the steps left counted as that step and not run
+(:class:`StepTrace`; the tests hold it to a trace of every step), so
+that xlstm's prefill of 32,768 decode steps traces in seconds.  A cell
+whose step stops keeps the reference's error form, ``{"error": ...}``.
+The CLI's line for a cell says which steps were counted by repetition
+and names the largest buffers live at the peak.
+:func:`collective_bytes`, the reference's parser of post-SPMD HLO text,
+is kept as the pure function it is.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import gc
+import heapq
 import json
 import os
 import re
@@ -67,12 +76,15 @@ import time
 import traceback
 
 from .. import configs
+from ..models import scan_util
 from ..sharding import partition
 from . import mesh as mesh_mod
 from . import specs as specs_mod
 
 #: the placeholder group's size: the multi-pod mesh's 2 x 16 x 16 ranks
 PLACEHOLDER_RANKS = 512
+#: the largest buffers live at a trace's peak that it names
+PEAK_BUFFERS = 5
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
@@ -161,6 +173,19 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _shard(t):
+    """``t``'s local tensor, as :func:`_local`, but through no operation
+    (for use outside the trace's own dispatch)."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _grown(now: dict, before: dict) -> frozenset:
+    """The entries of ``now`` that grew since ``before``, by how much."""
+    return frozenset((k, v - before.get(k, 0)) for k, v in now.items()
+                     if v != before.get(k, 0))
+
+
 class StepTrace:
     """One rank's view of a step run as a ``DTensor`` program: a dispatch
     mode that lets each ``DTensor`` operation go to DTensor first (as
@@ -188,7 +213,20 @@ class StepTrace:
       On a real group the process group's own thread may hold a finished
       collective's buffer a little longer (``gloo``'s worker: when is its
       scheduler's choice), so a real rank's peak may differ from the
-      ``fake`` group's by such a buffer.
+      ``fake`` group's by such a buffer;
+    * ``at_peak``: the largest buffers live at the peak, (shape, type,
+      bytes) each, a kernel's workspace among them while it runs;
+    * ``repeated``: (first step, steps, of) of each scan whose steps it
+      counted by repetition.
+
+    While :meth:`mode` runs it is the scans' counter
+    (``models.scan_util.counting``): a step of a scan on ``meta`` tensors
+    that adds what the step before it added (FLOPs; each collective
+    kind's bytes and count, and its bytes by result shape; the live
+    bytes it keeps, those of its ``ys`` entry alone; its peak above the
+    live bytes at its start) stands for the steps left, which are
+    counted as it and not run.  Where the peak lies in such steps, the
+    buffers named are those of the step they repeat.
     """
 
     def __init__(self, known=()):
@@ -207,8 +245,14 @@ class StepTrace:
         self.largest = 0
         #: (kind, result shape, type) -> result bytes in all
         self.by_shape: dict = {}
+        self.at_peak: list = []
+        self.repeated: list = []
+        #: the most live bytes since the start of the scan step traced now
+        self._high = 0
         #: storage id -> (its weak reference, its buffer: [bytes, members])
         self._storages: dict = {}
+        #: counted buffers live, by bytes: bytes -> {id: (shape, type)}
+        self._by_size: dict = {}
         for t in known:
             self._track(_local(t), count=False)
 
@@ -226,6 +270,9 @@ class StepTrace:
             if buf is None:
                 buf = [st.nbytes() if count else 0, 0]
                 self.live += buf[0]
+                if buf[0]:
+                    self._by_size.setdefault(buf[0], {})[id(buf)] = (
+                        tuple(t.shape), str(t.dtype).split(".")[-1])
             buf[1] += 1
 
         def freed(_, key=key, buf=buf):
@@ -234,8 +281,80 @@ class StepTrace:
                 buf[1] -= 1
                 if not buf[1]:
                     self.live -= buf[0]
+                    if buf[0]:
+                        same = self._by_size[buf[0]]
+                        del same[id(buf)]
+                        if not same:
+                            del self._by_size[buf[0]]
 
         self._storages[key] = (self._weakref.ref(st, freed), buf)
+
+    def _raise_peak(self, now: int, work: int = 0, func=None) -> None:
+        """Note ``now`` live bytes (``work`` of them ``func``'s
+        workspace), and the largest buffers if it is a new peak."""
+        self._high = max(self._high, now)
+        if now <= self.peak:
+            return
+        self.peak = now
+        top = [((), f"workspace of {func}", work)] if work else []
+        with self._lock:
+            for size in heapq.nlargest(PEAK_BUFFERS, self._by_size):
+                top += [(*d, size) for d in self._by_size[size].values()]
+                if len(top) >= PEAK_BUFFERS:
+                    break
+        self.at_peak = sorted(top, key=lambda x: -x[2])[:PEAK_BUFFERS]
+
+    # -- the scans' counter (models.scan_util) ------------------------------
+    def mark(self):
+        """The counts before a scan's step."""
+        mark = (self.flops, dict(self.bytes), dict(self.count),
+                dict(self.by_shape), dict(self.unmapped), self.live,
+                self._high)
+        self._high = self.live
+        return mark
+
+    def step(self, mark, carry, y):
+        """What the step since ``mark`` added; ``None`` where a tensor of
+        ``carry`` or ``y`` holds values, or the step kept more than
+        ``y``'s own buffers (each of ``y``'s tensors the whole of one)."""
+        flops, nbytes, count, by_shape, unmapped, live, high = mark
+        top, self._high = self._high - live, max(high, self._high)
+        shards = [_shard(t) for t in _tensors((carry, y))]
+        if any(t.device.type != "meta" for t in shards):
+            return None
+        kept = {}
+        for t in _tensors(y):
+            t = _shard(t)
+            st = t.untyped_storage()
+            entry = self._storages.get(id(st))
+            if entry is None or id(st) in kept or \
+                    st.nbytes() != t.numel() * t.element_size():
+                return None
+            kept[id(st)] = entry[1][0]
+        grew = self.live - live
+        if grew != sum(kept.values()):
+            return None
+        return (self.flops - flops,
+                tuple(self.bytes[k] - nbytes[k] for k in _COLLECTIVES),
+                tuple(self.count[k] - count[k] for k in _COLLECTIVES),
+                _grown(self.by_shape, by_shape),
+                _grown(self.unmapped, unmapped), grew, top)
+
+    def repeat(self, step, times: int, first: int) -> None:
+        """Count ``step`` (:meth:`step`) ``times`` more, the first of them
+        its scan's step ``first``; the live bytes the steps keep are their
+        ``ys`` entries, which the scan makes."""
+        flops, nbytes, count, by_shape, unmapped, grew, top = step
+        self.flops += times * flops
+        for k, b, c in zip(_COLLECTIVES, nbytes, count):
+            self.bytes[k] += times * b
+            self.count[k] += times * c
+        for k, b in by_shape:
+            self.by_shape[k] += times * b
+        for k, c in unmapped:
+            self.unmapped[k] += times * c
+        self._raise_peak(self.live + (times - 1) * grew + top)
+        self.repeated.append((first, times, first - 1 + times))
 
     def largest_shapes(self, n: int = 5) -> list:
         """The ``n`` (kind, result shape, type, bytes) of
@@ -251,15 +370,17 @@ class StepTrace:
         return out
 
     @contextlib.contextmanager
-    def mode(self):
-        """Trace what runs inside.  Python's cyclic garbage collector is
-        run first and held off until the end, so that tensors held in
-        reference cycles live to the end of the step, whatever ran before
-        (the peak is then an upper bound, the same on every run)."""
+    def mode(self, repeat: bool = True):
+        """Trace what runs inside; with ``repeat``, count a scan's
+        repeated steps by repetition (else every step runs).  Python's
+        cyclic garbage collector is run first and held off until the
+        end, so that tensors held in reference cycles live to the end of
+        the step, whatever ran before (the peak is then an upper bound,
+        the same on every run)."""
         gc.collect()
         gc.disable()
         try:
-            with self._mode():
+            with self._mode(), scan_util.counting(self if repeat else None):
                 yield self
         finally:
             gc.enable()
@@ -319,7 +440,7 @@ class StepTrace:
                 like = args[0] if name == "_wrap_tensor_autograd" else None
                 for t in _tensors(out):
                     trace._track(t, like=like)
-                trace.peak = max(trace.peak, trace.live + work)
+                trace._raise_peak(trace.live + work, work, func)
                 return out
 
         return _Mode()
@@ -343,16 +464,19 @@ def output_bytes(out) -> int:
                for t in partition.leaves(specs_mod.trees(out)))
 
 
-def measure(cell: specs_mod.Cell) -> dict:
+def measure(cell: specs_mod.Cell, *, repeat_steps: bool = True) -> dict:
     """``lower_s``, the record's ``memory`` and ``cost`` and its
     ``collectives`` for one call of the cell's step as a ``DTensor``
-    program on rank 0's ``meta`` shards (``specs.distribute``).
+    program on rank 0's ``meta`` shards (``specs.distribute``), and
+    ``notes``: what the trace saw that the record does not hold (the
+    scans counted by repetition, the buffers at the peak).
     ``temp_bytes`` is the trace's peak less the bytes of the outputs that
     the step made (those that are not arguments updated in place).  A
     cell on a mesh that is no ``DeviceMesh`` (the tests' ``FakeMesh``,
     which has no ranks) runs its step unpartitioned on its ``meta``
     arguments: then ``flops`` and ``temp_bytes`` are the whole step's,
-    and no collective is counted."""
+    and no collective is counted.  ``repeat_steps=False`` runs every
+    step of every scan (:meth:`StepTrace.mode`)."""
     from torch.distributed.device_mesh import DeviceMesh
     mesh = specs_mod.placed_leaves(cell.args, cell.in_shardings)[0][1].mesh
     if isinstance(mesh, DeviceMesh):
@@ -363,7 +487,7 @@ def measure(cell: specs_mod.Cell) -> dict:
         run = lambda cell, args: cell.step_fn(*args)
     trace = StepTrace(known=specs_mod.arg_tensors(args))
     t0 = time.perf_counter()
-    with trace.mode():
+    with trace.mode(repeat=repeat_steps):
         out = run(cell, args)
     lower_s = time.perf_counter() - t0
     if trace.by_shape:
@@ -378,6 +502,7 @@ def measure(cell: specs_mod.Cell) -> dict:
         if st is not None and id(st) not in known:
             made[id(st)] = st.nbytes()
     return {"lower_s": lower_s,
+            "notes": {"repeated": trace.repeated, "at_peak": trace.at_peak},
             "memory": {"argument_bytes": specs_mod.argument_bytes(cell),
                        "output_bytes": output_bytes(out),
                        "temp_bytes": trace.peak - sum(made.values()),
@@ -385,20 +510,6 @@ def measure(cell: specs_mod.Cell) -> dict:
             "cost": {"flops": trace.flops, "bytes_accessed": None,
                      "transcendentals": None},
             "collectives": trace.collectives()}
-
-
-#: cells whose step is a Python loop of thousands of steps, each step's
-#: operations partitioned by DTensor one by one: not traced, the
-#: reference's error form naming the time instead
-UNTRACED = {
-    ("xlstm-350m", "train_4k"): (
-        "not traced: xlstm's sLSTM is a Python loop of 4,095 steps a layer, "
-        "run three times (forward, remat's recompute, backward); the "
-        "unpartitioned meta trace took 390-398 s a cell"),
-    ("xlstm-350m", "prefill_32k"): (
-        "not traced: xlstm's prefill is 32,768 decode steps of 24 layers "
-        "through Python; the unpartitioned meta trace did not end in hours"),
-}
 
 
 def _mesh(multi_pod: bool, debug: str | None):
@@ -417,13 +528,17 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              remat: bool | None = None, extra_tag: str = "",
              pin_out: bool = False, cache_axis: str = "seq",
              microbatches: int = 1, debug_mesh: str | None = None,
-             batch: int | None = None, seq: int | None = None) -> dict:
-    """One cell's record.  ``debug_mesh`` (``"DxM"``) in place of the
+             batch: int | None = None, seq: int | None = None,
+             notes: dict | None = None) -> dict:
+    """One cell's record: the reference's keys, and ``torch``, the
+    version that counted it.  ``debug_mesh`` (``"DxM"``) in place of the
     production mesh, ``batch`` and ``seq`` in place of the shape's global
-    batch and sequence length: a cell cut to size.  A cell of
-    :data:`UNTRACED`, or one whose step stops (an operation no DTensor
-    rule covers: the error names it), holds the reference's error form,
-    ``{"error": ...}``, in ``memory``, ``cost`` and ``collectives``."""
+    batch and sequence length: a cell cut to size.  A cell whose step
+    stops (an operation no DTensor rule covers: the error names it)
+    holds the reference's error form, ``{"error": ...}``, in ``memory``,
+    ``cost`` and ``collectives``.  ``notes``, a dict, is given
+    :func:`measure`'s."""
+    import torch
     placeholder_group()
     mesh, mesh_name = _mesh(multi_pod, debug_mesh)
     chips = mesh_mod.mesh_chips(mesh)
@@ -434,15 +549,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                                 seq_shard=seq_shard, remat=remat,
                                 pin_out=pin_out, cache_axis=cache_axis,
                                 microbatches=microbatches, shape=shape)
-    why = UNTRACED.get((cell.cfg.name, shape_name))
-    if why is None:
-        try:
-            m = measure(cell)
-        except Exception as e:
-            why = f"{type(e).__name__}: {e}".splitlines()[0]
-    if why is not None:
+    try:
+        m = measure(cell)
+    except Exception as e:
+        why = f"{type(e).__name__}: {e}".splitlines()[0]
         m = {"lower_s": 0.0, "memory": {"error": why}, "cost": {"error": why},
              "collectives": {"error": why}}
+    if notes is not None:
+        notes.update(m.get("notes", {}))
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "chips": chips, "kind": cell.shape.kind,
@@ -450,8 +564,23 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "lower_s": round(m["lower_s"], 1), "compile_s": None,
         "tag": extra_tag,
         "memory": m["memory"], "cost": m["cost"],
-        "collectives": m["collectives"],
+        "collectives": m["collectives"], "torch": torch.__version__,
     }
+
+
+def _repeated(scans: list) -> str:
+    """What :attr:`StepTrace.repeated` says, in words."""
+    if not scans:
+        return "every step traced"
+    first = min(f for f, _, _ in scans)
+    return (f"{sum(t for _, t, _ in scans):,} of "
+            f"{sum(n for _, _, n in scans):,} steps of {len(scans)} scan(s) "
+            f"counted by repetition, from step {first:,}")
+
+
+def _buffers(top: list) -> str:
+    """:attr:`StepTrace.at_peak` in words."""
+    return ", ".join(f"{dt} {list(shape)} {b:,} B" for shape, dt, b in top)
 
 
 def main(argv=None) -> int:
@@ -507,6 +636,7 @@ def main(argv=None) -> int:
             if os.path.exists(fname):
                 print(f"SKIP {tag} (cached)")
                 continue
+            notes = {}
             try:
                 rec = run_cell(arch, shape, multi_pod=mp is True,
                                debug_mesh=mp if isinstance(mp, str) else None,
@@ -516,7 +646,7 @@ def main(argv=None) -> int:
                                remat=remat, extra_tag=args.tag,
                                pin_out=args.pin_out,
                                cache_axis=args.cache_axis,
-                               microbatches=args.microbatches)
+                               microbatches=args.microbatches, notes=notes)
                 with open(fname, "w") as f:
                     json.dump(rec, f, indent=1)
                 c = rec["cost"]
@@ -531,7 +661,9 @@ def main(argv=None) -> int:
                       f"temp={m['temp_bytes']:.3e}B/device "
                       f"collectives={k['total_bytes']:.3e}B "
                       f"{ {n: b for n, b in k['bytes'].items() if b} } "
-                      f"({rec['lower_s']}s)", flush=True)
+                      f"({rec['lower_s']}s, torch {rec['torch']}); "
+                      f"{_repeated(notes['repeated'])}; at the peak: "
+                      f"{_buffers(notes['at_peak'])}", flush=True)
             except Exception as e:
                 n_fail += 1
                 print(f"FAIL {tag}: {type(e).__name__}: {e}")

@@ -103,6 +103,9 @@ def main(argv=None, record: dict | None = None):
     ap.add_argument("--dtype", choices=sorted(DTYPES),
                     help="activation type (default: the config's)")
     ap.add_argument("--init", choices=("torch", "numpy"), default="torch")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the config's depth cut to this many layers "
+                         "(n_layers), its widths kept")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -111,6 +114,8 @@ def main(argv=None, record: dict | None = None):
            else configs.get(args.arch))
     if args.dtype:
         cfg = cfg.replace(dtype=DTYPES[args.dtype])
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     ocfg = opt_mod.OptConfig(lr=args.lr, warmup_steps=min(20, args.steps),
                              total_steps=args.steps,
                              state_dtype=cfg.param_dtype)

@@ -3,15 +3,16 @@ sLSTM (scalar memory, a true recurrence), interleaved 7:1.
 
 The port of ``repro/models/xlstm.py``.  A sequence runs the mLSTM in
 its stabilised parallel form (the gate-decay matrix plays the causal
-mask) and the sLSTM as a Python loop over time; decode is the O(1)
-recurrence of each.  Prefill, as the reference's, is the decode step
-over the prompt.  The reference computes all of it as ``jnp`` code,
-with no Pallas kernel, so plain PyTorch is its port.  The parameter
-tree's ``blocks`` is a list of two kinds of dict (the reference's
-heterogeneous Python list).
+mask) and the sLSTM as a scan over time (``scan_util.maybe_scan``);
+decode is the O(1) recurrence of each.  Prefill, as the reference's,
+is the decode step scanned over the prompt.  The reference computes
+all of it as ``jnp`` code, with no Pallas kernel, so plain PyTorch is
+its port.  The parameter tree's ``blocks`` is a list of two kinds of
+dict (the reference's heterogeneous Python list).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,9 +20,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import transformer
-from .common import (ModelConfig, dense_init, embed, embed_init,
-                     full_like_batch, gather_fsdp, merge_dims, rms_norm,
-                     silu, softmax_cross_entropy, split_dim)
+from .scan_util import maybe_scan
+from .common import (ModelConfig, batch_local, dense_init, embed,
+                     embed_init, full_like_batch, gather_fsdp, merge_dims,
+                     rms_norm, silu, softmax_cross_entropy, split_dim)
 
 
 def _is_slstm(cfg: ModelConfig, i: int) -> bool:
@@ -64,21 +66,17 @@ def _mlstm_qkvgates(cfg: ModelConfig, p, xm):
     return q, k, v, logi, logf, pd
 
 
-def mlstm_apply(cfg: ModelConfig, p, x):
-    """Parallel form.  x: (B, S, d)."""
-    p = gather_fsdp(p)
-    h_in = rms_norm(x, p["ln"], cfg.norm_eps)
-    xm, z = torch.chunk(h_in @ p["w_up"].to(x.dtype), 2, dim=-1)
-    q, k, v, logi, logf, pd = _mlstm_qkvgates(cfg, p, xm)
+def _mlstm_parallel(pd: int, q, k, v, logi, logf):
+    """The parallel form's (B, T, H, P) output, before its gate."""
     # D[t,s] = exp(F[t] - F[s] + logi[s] - m[t]),  F = cumsum(logf)
     f_cum = torch.cumsum(logf, dim=1)                       # (B,S,H)
     src = logi - f_cum
     m = f_cum + torch.cummax(src, dim=1).values             # stabiliser
     dmat = f_cum[:, :, None, :] - f_cum[:, None, :, :] \
         + logi[:, None, :, :] - m[:, :, None, :]            # (B,T,S,H)
-    s_len = x.shape[1]
+    s_len = q.shape[1]
     causal = torch.tril(torch.ones((s_len, s_len), dtype=torch.bool,
-                                   device=x.device))
+                                   device=q.device))
     dexp = torch.exp(torch.where(causal[None, :, :, None], dmat,
                                  float("-inf")))
     att = torch.einsum("bthp,bshp->btsh", q.float(), k.float()) \
@@ -86,7 +84,20 @@ def mlstm_apply(cfg: ModelConfig, p, x):
     w = att * dexp
     norm = torch.maximum(torch.abs(w.sum(dim=2)), torch.exp(-m))  # (B,T,H)
     y = torch.einsum("btsh,bshp->bthp", w, v.float())
-    y = merge_dims((y / norm[..., None]).to(x.dtype), -2)
+    return y / norm[..., None]
+
+
+def mlstm_apply(cfg: ModelConfig, p, x):
+    """Parallel form.  x: (B, S, d).  In a partitioned step the parallel
+    form is batch-parallel, on each rank's batch rows
+    (``common.batch_local``)."""
+    p = gather_fsdp(p)
+    h_in = rms_norm(x, p["ln"], cfg.norm_eps)
+    xm, z = torch.chunk(h_in @ p["w_up"].to(x.dtype), 2, dim=-1)
+    q, k, v, logi, logf, pd = _mlstm_qkvgates(cfg, p, xm)
+    y = batch_local(functools.partial(_mlstm_parallel, pd), q, k, v, logi,
+                    logf)
+    y = merge_dims(y.to(x.dtype), -2)
     return x + (y * silu(z)) @ p["w_down"].to(x.dtype)
 
 
@@ -188,12 +199,14 @@ def slstm_apply(cfg: ModelConfig, p, x):
     """x: (B, S, d): the recurrence over S."""
     p = gather_fsdp(p)
     pre = _slstm_pre(cfg, p, x)
-    st = slstm_state(cfg, x.shape[0], x.device)
-    hs = []
-    for t in range(x.shape[1]):
-        st = _slstm_cell(p, {g: a[:, t] for g, a in pre.items()}, st)
-        hs.append(st["h"])
-    y = torch.stack(hs, 1).to(x.dtype)
+
+    def body(st, xs):
+        st2 = _slstm_cell(p, xs, st)
+        return st2, st2["h"]
+
+    _, hs = maybe_scan(body, slstm_state(cfg, x.shape[0], x.device),
+                       {g: a.transpose(0, 1) for g, a in pre.items()})
+    y = hs.transpose(0, 1).to(x.dtype)
     return x + y @ p["w_down"].to(x.dtype)
 
 
@@ -266,15 +279,21 @@ def cache_specs(cfg: ModelConfig) -> list:
 
 
 def prefill(cfg: ModelConfig, params, tokens):
-    """The decode step over the prompt (O(S) time, O(1) state).  Returns
-    (the last step's logits (B, V), cache, lengths (B,))."""
-    b, s = tokens.shape
-    cache = init_cache(cfg, b, like=tokens)
-    lengths = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
-    for t in range(s):
-        logits, cache, lengths = decode_step(cfg, params, cache,
-                                             tokens[:, t], lengths)
-    return logits, cache, lengths
+    """The decode step scanned over the prompt (O(S) time, O(1) state).
+    Returns (the last step's logits (B, V), cache, lengths (B,)); the
+    carry holds the last step's logits alone."""
+    b = tokens.shape[0]
+
+    def body(carry, token):
+        _, cache, lengths = carry
+        return decode_step(cfg, params, cache, token, lengths), None
+
+    # the first carry is built in the call, so that nothing here holds
+    # the first cache once the scan has stepped past it
+    return maybe_scan(body, (None, init_cache(cfg, b, like=tokens),
+                             torch.zeros((b,), dtype=torch.int32,
+                                         device=tokens.device)),
+                      tokens.transpose(0, 1))[0]
 
 
 def decode_step(cfg: ModelConfig, params, cache, token, lengths):

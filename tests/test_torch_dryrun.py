@@ -13,11 +13,17 @@ against the JAX reference's, on the CPU.
 * every architecture's parameter count at full width equals the
   reference's (``jax.eval_shape`` against ``convert._layout``: nothing is
   allocated);
-* the CLI writes a record a mesh with the reference's keys: collective
-  bytes and counts by the reference's five kinds, temporary bytes, one
-  device's FLOPs (together at least the whole step's, as ``measure``
-  counts it unpartitioned on the ``FakeMesh``) and argument bytes those of
-  ``build_cell`` in this process;
+* the CLI writes a record a mesh with the reference's keys and the
+  ``torch`` that counted it: collective bytes and counts by the
+  reference's five kinds, temporary bytes, one device's FLOPs (together
+  at least the whole step's, as ``measure`` counts it unpartitioned on
+  the ``FakeMesh``) and argument bytes those of ``build_cell`` in this
+  process; for granite's ``decode_32k`` and xlstm's ``prefill_32k``
+  (32,768 decode steps, counted by repetition);
+* a scan's steps counted by repetition give the record that tracing
+  every step gives, field for field but ``lower_s``: xlstm's smoke
+  prefill on a (2, 2) mesh, and xlstm-350m's prefill at published
+  widths on 16x16, its prompt cut to 24 tokens;
 * the LM kernels' operators take their fake implementations on a
   ``meta`` tensor, forward and backward, the eGPU kernels their plain
   versions, and no launch is counted.
@@ -220,25 +226,30 @@ print("BYTES_OK")
     assert "BYTES_OK" in r.stdout, r.stdout + r.stderr
 
 
-#: a record's keys, as the reference's ``run_cell`` writes them
+#: a record's keys: the reference's ``run_cell``'s, and ``torch``
 RECORD_KEYS = {"arch", "shape", "mesh", "chips", "kind", "params", "lower_s",
-               "compile_s", "tag", "memory", "cost", "collectives"}
+               "compile_s", "tag", "memory", "cost", "collectives", "torch"}
 
 
-def test_cli_writes_reference_records(tmp_path):
-    arch, shape = "granite-moe-3b-a800m", "decode_32k"
+@pytest.mark.parametrize("arch,shape", [("granite-moe-3b-a800m", "decode_32k"),
+                                        ("xlstm-350m", "prefill_32k")])
+def test_cli_writes_reference_records(tmp_path, arch, shape):
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape, "--both-meshes", "--out", str(tmp_path)],
         capture_output=True, text=True, timeout=180, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert r.returncode == 0, r.stdout + r.stderr
+    if arch == "xlstm-350m":
+        assert r.stdout.count("32,765 of 32,768 steps of 1 scan(s) counted "
+                              "by repetition, from step 4") == 2, r.stdout
     for name, mesh in (("16x16", FakeMesh((16, 16), ("data", "model"))),
                        ("2x16x16", FakeMesh((2, 16, 16),
                                             ("pod", "data", "model")))):
         rec = json.loads((tmp_path / f"{arch}__{shape}__{name}.json")
                          .read_text())
         assert set(rec) == RECORD_KEYS
+        assert rec["torch"] == torch.__version__
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                       "temp_bytes", "generated_code_bytes"}
         assert set(rec["cost"]) == {"flops", "bytes_accessed",
@@ -265,6 +276,54 @@ def test_cli_writes_reference_records(tmp_path):
         assert isinstance(rec["memory"]["temp_bytes"], int)
         assert rec["memory"]["temp_bytes"] > 0
         assert rec["memory"]["generated_code_bytes"] is None
+
+
+REPEATED = """
+import json, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun, mesh, specs
+full = sys.argv[1] == "full"
+dryrun.placeholder_group(*(() if full else (4,)))
+if full:
+    cell = specs.build_cell(
+        "xlstm-350m", "prefill_32k",
+        mesh.make_production_mesh(multi_pod=False, device="cpu"),
+        shape=configs.ShapeSpec("prefill_32k", 24, 32, "prefill"))
+else:
+    cell = specs.build_cell(
+        "xlstm-350m", None, mesh.make_debug_mesh(2, 2, device="cpu"),
+        cfg=configs.get_smoke("xlstm-350m"),
+        shape=configs.ShapeSpec("prefill_small", 32, 4, "prefill"))
+out = {}
+for repeat in (True, False):
+    rec = dryrun.measure(cell, repeat_steps=repeat)
+    rec.pop("lower_s")
+    out[repeat] = dict(rec, repeated=rec.pop("notes")["repeated"])
+print("RECORDS " + json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("cell,steps", [("smoke", 32), ("full", 24)])
+def test_repetition_equals_every_step(cell, steps):
+    """xlstm's prefill traced step by step until two steps count the same
+    and the rest counted by repetition, against a trace of every step:
+    every field of the record but ``lower_s`` equal.  ``smoke``: the
+    smoke config on a (2, 2) mesh; ``full``: xlstm-350m at published
+    widths and depth on 16x16 (``placeholder_group``'s 512 ranks), the
+    global batch kept and the prompt cut to 24 tokens."""
+    r = subprocess.run(
+        [sys.executable, "-c", REPEATED, cell], capture_output=True,
+        text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    line = [x for x in r.stdout.splitlines() if x.startswith("RECORDS ")]
+    assert r.returncode == 0 and line, r.stdout + r.stderr
+    got = json.loads(line[0][len("RECORDS "):])
+    repeated, every = got["true"], got["false"]
+    assert repeated.pop("repeated") == [[4, steps - 3, steps]]
+    assert every.pop("repeated") == []
+    assert repeated == every
+    assert repeated["cost"]["flops"] > 0
+    assert repeated["collectives"]["total_bytes"] > 0
 
 
 def test_kernel_wrappers_take_the_plain_route_on_meta():
