@@ -1,0 +1,7 @@
+"""The ``wavefront_alu`` step kernel's share of its roofline over the
+profiled drain."""
+from portbench.readers import kernel_roofline
+
+
+def read(ctx):
+    return kernel_roofline(ctx, "wavefront_alu")
