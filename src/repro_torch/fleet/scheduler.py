@@ -46,6 +46,7 @@ engine lives or dies by.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import time
@@ -172,6 +173,23 @@ def _result_checksum(res: "JobResult") -> bytes:
     h.update(int(res.cycles).to_bytes(8, "little", signed=True))
     h.update(int(res.steps).to_bytes(8, "little", signed=True))
     return h.digest()
+
+
+def _roll_up_counters(tr: obs_trace.Tracer,
+                      results: dict[int, "JobResult"]) -> None:
+    """The drain's ``drain_counters`` event and the tracer's running
+    totals: the jobs of one compiled program share one
+    :class:`~repro_torch.obs.counters.EventCounters` block, so each
+    distinct block is summed once, times the jobs that carry it."""
+    blocks = [r.counters for r in results.values()]
+    jobs = collections.Counter(map(id, blocks))
+    distinct = dict(zip(map(id, blocks), blocks))
+    agg = obs_counters.aggregate(distinct.values(),
+                                 [jobs[k] for k in distinct])
+    if agg is not None:
+        flat = agg.flat()
+        tr.event("drain_counters", **flat)
+        tr.add_counters(flat)
 
 
 @dataclasses.dataclass
@@ -713,41 +731,48 @@ class FleetScheduler:
                  results: dict[int, JobResult]) -> None:
         """Slice per-job results out of a batched final state (one host
         transfer per leaf, then pure-NumPy scatter to jobs).  ``shared``
-        comes back as uint32 words, the reference's dtype."""
-        host = lambda t: t.cpu().numpy()
-        shared = host(final.shared).view(np.uint32)
-        cycles = host(final.cycles)
-        steps = host(final.steps)
-        hv = host(final.hazard_violations)
-        stat_c = host(final.stat_cycles)
-        stat_i = host(final.stat_instrs)
-        tr = self._trace()
-        sum_cycles = sum_steps = 0
-        for i, job in enumerate(batch[:real]):
-            res = JobResult(
-                handle=job.handle, tag=job.tag, cycles=int(cycles[i]),
-                steps=int(steps[i]),
-                time_us=self.cfg.cycles_to_us(int(cycles[i])),
-                hazard_violations=int(hv[i]), shared=shared[i],
-                stat_cycles=stat_c[i], stat_instrs=stat_i[i],
-                tier="interp")
-            if tr is not None:
-                res.counters = self._job_counters(job)
-                tr.async_end("job", id=job.handle, cycles=res.cycles,
-                             tier="interp")
-            results[job.handle] = res
-            sum_cycles += res.cycles
-            sum_steps += res.steps
-        # one registry pass per batch, not per job (hot path)
-        m = self._m
-        m.inc("fleet_batches_total", tier="interp", program="mixed",
-              device=self._dev)
-        m.inc("fleet_jobs_total", real, tier="interp", program="mixed",
-              device=self._dev)
-        m.inc("fleet_pad_slots_total", len(batch) - real)
-        m.inc("fleet_wall_seconds_total", wall)
-        m.inc("fleet_cycles_total", sum_cycles)
-        m.inc("fleet_steps_total", sum_steps)
+        comes back as uint32 words, the reference's dtype.  Traced, the
+        spans ``download`` (the leaves' copies, with their ``bytes``)
+        and ``results``."""
+        with obs_trace.span("download") as sp:
+            host = lambda t: t.cpu().numpy()
+            shared = host(final.shared).view(np.uint32)
+            cycles = host(final.cycles)
+            steps = host(final.steps)
+            hv = host(final.hazard_violations)
+            stat_c = host(final.stat_cycles)
+            stat_i = host(final.stat_instrs)
+            if sp.active:
+                sp.set(bytes=sum(x.nbytes for x in (shared, cycles, steps,
+                                                    hv, stat_c, stat_i)))
+        with obs_trace.span("results"):
+            tr = self._trace()
+            sum_cycles = sum_steps = 0
+            for i, job in enumerate(batch[:real]):
+                res = JobResult(
+                    handle=job.handle, tag=job.tag, cycles=int(cycles[i]),
+                    steps=int(steps[i]),
+                    time_us=self.cfg.cycles_to_us(int(cycles[i])),
+                    hazard_violations=int(hv[i]), shared=shared[i],
+                    stat_cycles=stat_c[i], stat_instrs=stat_i[i],
+                    tier="interp")
+                if tr is not None:
+                    res.counters = self._job_counters(job)
+                    tr.async_end("job", id=job.handle, cycles=res.cycles,
+                                 tier="interp")
+                results[job.handle] = res
+                sum_cycles += res.cycles
+                sum_steps += res.steps
+            # one registry pass per batch, not per job (hot path)
+            m = self._m
+            m.inc("fleet_batches_total", tier="interp", program="mixed",
+                  device=self._dev)
+            m.inc("fleet_jobs_total", real, tier="interp",
+                  program="mixed", device=self._dev)
+            m.inc("fleet_pad_slots_total", len(batch) - real)
+            m.inc("fleet_wall_seconds_total", wall)
+            m.inc("fleet_cycles_total", sum_cycles)
+            m.inc("fleet_steps_total", sum_steps)
 
     def _job_counters(self, job: FleetJob) -> EventCounters | None:
         """Event counters for an interpreter-tier job (tracing only):
@@ -772,95 +797,125 @@ class FleetScheduler:
             b *= 2
         return min(b, cap)
 
-    def _resident_inputs(self, cp, chunk: list[FleetJob]):
-        """The batch's device inputs — replayed from the residency cache
-        when this exact (program, padded batch content) was transferred
-        by an earlier drain, else packed host-side and transferred: an
-        int32 ``(B, S)`` tensor holding the uint32 words' bits and the
-        ``(B,)`` int32 TDX grids, on the scheduler's device."""
+    def _resident_inputs(self, cp, chunk: list[FleetJob], real: int,
+                         devices, cache: ResidencyCache):
+        """A batch's device inputs, as one int32 ``(B / n, S)`` shard of
+        the uint32 words' bits and one ``(B / n,)`` int32 TDX vector on
+        each of the ``n`` ``devices`` (rows in order) — replayed from
+        ``cache`` when this exact (program, padded batch content) was
+        transferred by an earlier drain, else packed host-side and
+        transferred.  The first ``real`` jobs are the batch's own, the
+        rest filler.  Traced, the parts show as the spans ``digest``
+        (the key), then on a miss ``pack`` (the host image) and
+        ``upload`` (the copies and the host image's release; ``bytes``
+        of the image, ``payload_bytes`` of the real jobs' words)."""
         S = self.cfg.shared_words
-        # every variable-length field is length-prefixed (and None gets
-        # its own tag byte) so job boundaries cannot alias: without the
-        # prefixes, two different batches whose concatenated bytes
-        # happen to match would digest identically and silently replay
-        # the wrong resident inputs
-        h = hashlib.blake2b(digest_size=16)
-        for j in chunk:
-            if j.shared_init is None:
-                h.update(b"\x00")
-            else:
-                h.update(b"\x01")
-                dt = str(j.shared_init.dtype).encode()
-                h.update(len(dt).to_bytes(4, "little"))
-                h.update(dt)
-                payload = j.shared_init.tobytes()
-                h.update(len(payload).to_bytes(8, "little"))
-                h.update(payload)
-            h.update(int(j.tdx_dim).to_bytes(4, "little", signed=True))
-        # the digest is part of the key: distinct batches of one program
-        # (different data, or several chunks per drain) coexist in the
-        # cache instead of thrashing a single per-program slot
-        key = (program_key(cp.image), cp.threads, self.validate,
-               len(chunk), h.digest())
+        with obs_trace.span("digest"):
+            # every variable-length field is length-prefixed (and None
+            # gets its own tag byte) so job boundaries cannot alias:
+            # without the prefixes, two different batches whose
+            # concatenated bytes happen to match would digest
+            # identically and silently replay the wrong resident inputs
+            h = hashlib.blake2b(digest_size=16)
+            for j in chunk:
+                if j.shared_init is None:
+                    h.update(b"\x00")
+                else:
+                    h.update(b"\x01")
+                    dt = str(j.shared_init.dtype).encode()
+                    h.update(len(dt).to_bytes(4, "little"))
+                    h.update(dt)
+                    payload = j.shared_init.tobytes()
+                    h.update(len(payload).to_bytes(8, "little"))
+                    h.update(payload)
+                h.update(int(j.tdx_dim).to_bytes(4, "little", signed=True))
+            # the digest is part of the key: distinct batches of one
+            # program (different data, or several chunks per drain)
+            # coexist in the cache instead of thrashing a single
+            # per-program slot
+            key = (program_key(cp.image), cp.threads, self.validate,
+                   len(chunk), h.digest())
 
         def build():
-            shared = np.zeros((len(chunk), S), np.uint32)
-            for i, j in enumerate(chunk):
-                if j.shared_init is None:
-                    continue
-                buf = machine_mod.pack_shared_init(j.shared_init, S)
-                shared[i, :buf.size] = buf
-            tdx = np.asarray([j.tdx_dim for j in chunk], np.int32)
-            return (torch.from_numpy(shared.view(np.int32)).to(self.device),
-                    torch.from_numpy(tdx).to(self.device))
+            with obs_trace.span("pack"):
+                shared = np.zeros((len(chunk), S), np.uint32)
+                for i, j in enumerate(chunk):
+                    if j.shared_init is None:
+                        continue
+                    buf = machine_mod.pack_shared_init(j.shared_init, S)
+                    shared[i, :buf.size] = buf
+                tdx = np.asarray([j.tdx_dim for j in chunk], np.int32)
+            n = len(chunk) // len(devices)
+            rows = [slice(k * n, (k + 1) * n) for k in range(len(devices))]
+            with obs_trace.span("upload") as usp:
+                out = (tuple(torch.from_numpy(shared[r].view(np.int32)).to(d)
+                             for r, d in zip(rows, devices)),
+                       tuple(torch.from_numpy(tdx[r]).to(d)
+                             for r, d in zip(rows, devices)))
+                if usp.active:
+                    usp.set(bytes=shared.nbytes, payload_bytes=4 * sum(
+                        np.size(j.shared_init) for j in chunk[:real]
+                        if j.shared_init is not None))
+                # freeing the pageable host image is part of staging
+                # the inputs through it
+                del shared
+            return out
 
         if faults.fire("residency_evict") is not None:
-            self._residency.clear()      # must be a miss, never an error
-        arrays, hit = self._residency.lookup(key, cp, build)
+            cache.clear()                # must be a miss, never an error
+        arrays, hit = cache.lookup(key, cp, build)
         self._m.inc("fleet_residency_lookups_total",
                     result="hit" if hit else "miss")
         return arrays, hit
 
-    def _collect_light(self, cp, shared_dev, batch: list[FleetJob],
+    def _collect_light(self, cp, outs, batch: list[FleetJob],
                        real: int, wall: float,
                        results: dict[int, JobResult]) -> None:
-        """Light-path result collection: the shared image is the only
-        device->host transfer; cycles/steps/stats/hazards come baked
-        from the compile-time path simulation — identical for every
-        lock-step core running the program, and bit-identical to what
-        ``run()`` returns (the equivalence suites pin this).  ``shared``
-        comes back as uint32 words, the reference's dtype."""
-        shared = shared_dev.cpu().numpy().view(np.uint32)
-        sim = cp.sim
-        zeros = np.zeros((isa.NUM_OP_CLASSES,), np.int32)
-        stat_c = np.asarray(sim.stat_cycles) if self.validate else zeros
-        stat_i = np.asarray(sim.stat_instrs) if self.validate else zeros
-        cycles = int(sim.cycles)
-        steps = int(sim.steps)
-        hv = int(sim.violations)         # already 0 under validate=False
-        time_us = self.cfg.cycles_to_us(cycles)
-        counters = cp.event_counters()   # baked once, shared per program
-        tr = self._trace()
-        for i, job in enumerate(batch[:real]):
-            results[job.handle] = JobResult(
-                handle=job.handle, tag=job.tag, cycles=cycles,
-                steps=steps, time_us=time_us, hazard_violations=hv,
-                shared=shared[i], stat_cycles=stat_c, stat_instrs=stat_i,
-                tier=cp.mode, counters=counters)
-            if tr is not None:
-                tr.async_end("job", id=job.handle, cycles=cycles,
-                             tier=cp.mode)
-        # one registry pass per batch, not per job (hot path)
-        prog = _prog_digest(cp.image)
-        m = self._m
-        m.inc("fleet_batches_total", tier=cp.mode, program=prog,
-              device=self._dev)
-        m.inc("fleet_jobs_total", real, tier=cp.mode, program=prog,
-              device=self._dev)
-        m.inc("fleet_pad_slots_total", len(batch) - real)
-        m.inc("fleet_wall_seconds_total", wall)
-        m.inc("fleet_cycles_total", cycles * real)
-        m.inc("fleet_steps_total", steps * real)
+        """Light-path result collection: the final shared images
+        (``outs``, one a device in row order) are the only device->host
+        transfer; cycles/steps/stats/hazards come baked from the
+        compile-time path simulation — identical for every lock-step
+        core running the program, and bit-identical to what ``run()``
+        returns (the equivalence suites pin this).  ``shared`` comes
+        back as uint32 words, the reference's dtype.  Traced, the spans
+        ``download`` (with the ``bytes`` copied) and ``results``."""
+        with obs_trace.span("download") as sp:
+            shared = (outs[0].cpu() if len(outs) == 1
+                      else torch.cat([o.cpu() for o in outs]))
+            shared = shared.numpy().view(np.uint32)
+            if sp.active:
+                sp.set(bytes=shared.nbytes)
+        with obs_trace.span("results"):
+            sim = cp.sim
+            zeros = np.zeros((isa.NUM_OP_CLASSES,), np.int32)
+            stat_c = np.asarray(sim.stat_cycles) if self.validate else zeros
+            stat_i = np.asarray(sim.stat_instrs) if self.validate else zeros
+            cycles = int(sim.cycles)
+            steps = int(sim.steps)
+            hv = int(sim.violations)     # already 0 under validate=False
+            time_us = self.cfg.cycles_to_us(cycles)
+            counters = cp.event_counters()   # baked once, shared per program
+            tr = self._trace()
+            for i, job in enumerate(batch[:real]):
+                results[job.handle] = JobResult(
+                    handle=job.handle, tag=job.tag, cycles=cycles,
+                    steps=steps, time_us=time_us, hazard_violations=hv,
+                    shared=shared[i], stat_cycles=stat_c,
+                    stat_instrs=stat_i, tier=cp.mode, counters=counters)
+                if tr is not None:
+                    tr.async_end("job", id=job.handle, cycles=cycles,
+                                 tier=cp.mode)
+            # one registry pass per batch, not per job (hot path)
+            prog = _prog_digest(cp.image)
+            m = self._m
+            m.inc("fleet_batches_total", tier=cp.mode, program=prog,
+                  device=self._dev)
+            m.inc("fleet_jobs_total", real, tier=cp.mode, program=prog,
+                  device=self._dev)
+            m.inc("fleet_pad_slots_total", len(batch) - real)
+            m.inc("fleet_wall_seconds_total", wall)
+            m.inc("fleet_cycles_total", cycles * real)
+            m.inc("fleet_steps_total", steps * real)
 
     def _run_compiled_unit(self, cp, chunk: list[FleetJob],
                            results: dict[int, JobResult]) -> None:
@@ -875,8 +930,9 @@ class FleetScheduler:
                 chunk = chunk + chunk[:1] * pad   # same-program filler
             t0 = time.perf_counter()
             with obs_trace.span("residency") as rsp:
-                (shared_dev, tdx_dev), res_hit = \
-                    self._resident_inputs(cp, chunk)
+                ((shared_dev,), (tdx_dev,)), res_hit = \
+                    self._resident_inputs(cp, chunk, real, (self.device,),
+                                          self._residency)
             if rsp.active:
                 rsp.set(hit=res_hit)
             # split the one-time graph captures (and a first use's
@@ -908,7 +964,7 @@ class FleetScheduler:
                             device=self._dev)
             wall = time.perf_counter() - t0 - compile_s
             with obs_trace.span("collect"):
-                self._collect_light(cp, shared_out, chunk, real, wall,
+                self._collect_light(cp, [shared_out], chunk, real, wall,
                                     results)
 
     def _run_interp_unit(self, batch: list[FleetJob],
@@ -1129,13 +1185,8 @@ class FleetScheduler:
                 raise
 
             tr = obs_trace.current_tracer()
-            if tr is not None:           # per-drain counter rollup
-                agg = obs_counters.aggregate(
-                    r.counters for r in results.values())
-                if agg is not None:
-                    flat = agg.flat()
-                    tr.event("drain_counters", **flat)
-                    tr.add_counters(flat)
+            if tr is not None:
+                _roll_up_counters(tr, results)
                 if dsp.active:
                     dsp.set(delivered=len(results),
                             failed=len(failures),

@@ -157,6 +157,7 @@ class _Ticket:
     attempts: int = 0
     not_before: float = 0.0          # backoff gate
     dispatch_t: float = 0.0          # last dispatch, for job latency
+    phase: str = ""                  # traced: the open "queued" or "run"
 
 
 def register_serve_metrics(reg: obs_metrics.MetricsRegistry,
@@ -301,7 +302,10 @@ class FleetService:
     ``job_failed``, ``dispatch_timeout``, ``admission_reject``,
     ``tier_degrade``, ``fault_injected``) land in the same Perfetto
     trace as the drain spans, with per-request ``request`` async pairs
-    measuring true submit->resolve latency (queue wait included).
+    measuring true submit->resolve latency (queue wait included).  Each
+    pair holds, per attempt, a ``queued`` phase (submit or retry ->
+    the dispatch of the cohort that carries it) and a ``run`` phase
+    (that dispatch -> resolution or retry), on the tracer's clock.
     ``faults=`` installs a :class:`~repro_torch.fleet.faults.FaultPlan`
     for everything the dispatcher runs.  ``device`` is the card unless
     ``"cpu"`` is asked for (raising without a card, as ``Fleet`` does);
@@ -558,13 +562,19 @@ class FleetService:
                         future=Future())
             self.metrics.inc("serve_submitted_total",
                              priority=priority)
+            tr = self.tracer
+            if tr is not None:
+                # opened before the ticket is queued, so no dispatcher
+                # can close its queue wait first
+                ts = tr.now_us()
+                tr.async_begin("request", id=tid, ts=ts,
+                               priority=priority, cost=cost)
+                tr.async_begin("queued", id=tid, ts=ts)
+                t.phase = "queued"
             self._pending_cost += cost
             self._queue.append(t)
             self._update_gauges()
             self._work.notify_all()
-        if self.tracer is not None:
-            self.tracer.async_begin("request", id=tid,
-                                    priority=priority, cost=cost)
         return t.future
 
     # ------------------------------------------------------- dispatcher
@@ -669,6 +679,11 @@ class FleetService:
                         queued=self.pending, device=label)
         for t in cohort:
             t.dispatch_t = now
+        tr = self.tracer
+        if tr is not None:
+            ts = tr.now_us()
+            for t in cohort:
+                self._phase(t, "run", ts)
         sched = self._scheds[idx]
         try:
             handle2t = {
@@ -793,6 +808,20 @@ class FleetService:
         self._scheds[idx] = self._make_sched(idx)
 
     # ------------------------------------------------------- resolution
+    def _phase(self, t: _Ticket, phase: str, ts: float,
+               **args) -> None:
+        """Traced: close the request's open phase and open ``phase``
+        (``""``: none, the ``request`` pair ends, with ``args``) at the
+        one stamp ``ts``, so a request's phases tile its pair."""
+        tr = self.tracer
+        if t.phase:
+            tr.async_end(t.phase, id=t.tid, ts=ts)
+        t.phase = phase
+        if phase:
+            tr.async_begin(phase, id=t.tid, ts=ts)
+        else:
+            tr.async_end("request", id=t.tid, ts=ts, **args)
+
     def _release(self, t: _Ticket) -> None:
         with self._work:
             self._inflight_cost -= t.cost
@@ -815,8 +844,8 @@ class FleetService:
         self.metrics.inc("serve_completed_total", tier=res.tier)
         self._observe_latency(t, "ok")
         if self.tracer is not None:
-            self.tracer.async_end("request", id=t.tid, tier=res.tier,
-                                  attempts=t.attempts)
+            self._phase(t, "", self.tracer.now_us(), tier=res.tier,
+                        attempts=t.attempts)
         t.future.set_result(res)
 
     def _retry_or_fail(self, t: _Ticket, kind: str,
@@ -832,6 +861,8 @@ class FleetService:
             return
         delay = self.backoff_s * self.backoff_factor ** (t.attempts - 1)
         t.not_before = now + delay
+        if self.tracer is not None:      # the next attempt's queue wait
+            self._phase(t, "queued", self.tracer.now_us())
         self.metrics.inc("serve_retries_total", kind=kind)
         self._event("job_retry", id=t.tid, attempts=t.attempts,
                     kind=kind, backoff_s=round(delay, 6))
@@ -851,7 +882,7 @@ class FleetService:
         self._event("job_failed", id=t.tid, kind=kind,
                     attempts=t.attempts)
         if self.tracer is not None:
-            self.tracer.async_end("request", id=t.tid, error=kind)
+            self._phase(t, "", self.tracer.now_us(), error=kind)
         recent: list = []
         if self.recorder is not None:
             # retry exhaustion is a production failure worth a blackbox

@@ -46,24 +46,20 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextvars
-import hashlib
 import time
 from typing import Any
-
-import numpy as np
-import torch
 
 from ..core import machine as machine_mod
 from ..core.blockc import program_key
 from ..core.config import EGPUConfig
-from ..obs import counters as obs_counters
 from ..obs import trace as obs_trace
 from . import faults
 from .devices import (balance_units, device_label, fleet_devices,
                       make_job_mesh, on_device)
 from .engine import ResidencyCache
 from .scheduler import (DrainCancelled, FleetJob, FleetScheduler,
-                        JobResult, _prog_digest, _result_checksum)
+                        JobResult, _prog_digest, _result_checksum,
+                        _roll_up_counters)
 
 __all__ = ["ShardedFleetScheduler"]
 
@@ -136,54 +132,6 @@ class ShardedFleetScheduler(FleetScheduler):
                     result="miss" if compile_s else "hit")
         return compile_s
 
-    def _mega_inputs(self, cp, chunk: list[FleetJob]):
-        """The slab's inputs, one ``(batch_size, S)`` int32 shard and
-        one ``(batch_size,)`` TDX vector on each device, replayed from
-        the megabatch residency cache when this exact content was
-        transferred before (same digest discipline as the base
-        scheduler)."""
-        S = self.cfg.shared_words
-        h = hashlib.blake2b(digest_size=16)
-        for j in chunk:
-            if j.shared_init is None:
-                h.update(b"\x00")
-            else:
-                h.update(b"\x01")
-                dt = str(j.shared_init.dtype).encode()
-                h.update(len(dt).to_bytes(4, "little"))
-                h.update(dt)
-                payload = j.shared_init.tobytes()
-                h.update(len(payload).to_bytes(8, "little"))
-                h.update(payload)
-            h.update(int(j.tdx_dim).to_bytes(4, "little", signed=True))
-        key = (program_key(cp.image), cp.threads, self.validate,
-               len(chunk), h.digest())
-
-        def build():
-            shared = np.zeros((len(chunk), S), np.uint32)
-            for i, j in enumerate(chunk):
-                if j.shared_init is None:
-                    continue
-                buf = machine_mod.pack_shared_init(j.shared_init, S)
-                shared[i, :buf.size] = buf
-            tdx = np.asarray([j.tdx_dim for j in chunk], np.int32)
-            B = self.batch_size
-            rows = [slice(k * B, (k + 1) * B)
-                    for k in range(self.n_devices)]
-            sh_dev = tuple(
-                torch.from_numpy(shared[r].view(np.int32)).to(d)
-                for r, d in zip(rows, self._mesh.devices))
-            tdx_dev = tuple(torch.from_numpy(tdx[r]).to(d)
-                            for r, d in zip(rows, self._mesh.devices))
-            return sh_dev, tdx_dev
-
-        if faults.fire("residency_evict") is not None:
-            self._mega_residency.clear()
-        arrays, hit = self._mega_residency.lookup(key, cp, build)
-        self._m.inc("fleet_residency_lookups_total",
-                    result="hit" if hit else "miss")
-        return arrays, hit
-
     def _run_megabatch(self, cp, chunk: list[FleetJob],
                        results: dict[int, JobResult]) -> None:
         """One exact slab — ``n_devices * batch_size`` same-program
@@ -194,8 +142,9 @@ class ShardedFleetScheduler(FleetScheduler):
                             device="mesh", devices=self.n_devices):
             t0 = time.perf_counter()
             with obs_trace.span("residency") as rsp:
-                (shared_dev, tdx_dev), res_hit = \
-                    self._mega_inputs(cp, chunk)
+                (shared_dev, tdx_dev), res_hit = self._resident_inputs(
+                    cp, chunk, real, self._mesh.devices,
+                    self._mega_residency)
             if rsp.active:
                 rsp.set(hit=res_hit)
             compile_s = self._mega_plans(cp, shared_dev, tdx_dev)
@@ -224,9 +173,7 @@ class ShardedFleetScheduler(FleetScheduler):
                             tier=cp.mode, device="mesh")
             wall = time.perf_counter() - t0 - compile_s
             with obs_trace.span("collect"):
-                shared_out = torch.cat([o.cpu() for o in outs])
-                self._collect_light(cp, shared_out, chunk, real, wall,
-                                    results)
+                self._collect_light(cp, outs, chunk, real, wall, results)
 
     def _take_megabatches(self, jobs: list[FleetJob]):
         """Split out exact same-program slabs for the megabatch path;
@@ -394,12 +341,7 @@ class ShardedFleetScheduler(FleetScheduler):
 
             tr = obs_trace.current_tracer()
             if tr is not None:
-                agg = obs_counters.aggregate(
-                    r.counters for r in results.values())
-                if agg is not None:
-                    flat = agg.flat()
-                    tr.event("drain_counters", **flat)
-                    tr.add_counters(flat)
+                _roll_up_counters(tr, results)
                 if dsp.active:
                     dsp.set(delivered=len(results),
                             failed=len(failures),

@@ -108,17 +108,25 @@ class EventCounters:
         return d
 
 
-def aggregate(counters: Iterable[EventCounters | None]) -> EventCounters | None:
+def aggregate(counters: Iterable[EventCounters | None],
+              counts: Iterable[int] | None = None) -> EventCounters | None:
     """Sum counter blocks field-wise (``None`` entries — jobs without
-    counters — are skipped; all-``None`` aggregates to ``None``)."""
-    cs = [c for c in counters if c is not None]
-    if not cs:
+    counters — are skipped; all-``None`` aggregates to ``None``).
+    ``counts``, one a block, weighs each block by how many jobs share
+    it, so one block per compiled program stands for its batch."""
+    if counts is None:
+        pairs = [(c, 1) for c in counters if c is not None]
+    else:
+        pairs = [(c, n) for c, n in zip(counters, counts) if c is not None]
+    if not pairs:
         return None
+    ns = [n for _, n in pairs]
     kw = {}
     for f in dataclasses.fields(EventCounters):
-        vals = [getattr(c, f.name) for c in cs]
+        vals = [getattr(c, f.name) for c, _ in pairs]
         if isinstance(vals[0], tuple):
-            kw[f.name] = tuple(int(sum(col)) for col in zip(*vals))
+            kw[f.name] = tuple(sum(int(x) * n for x, n in zip(col, ns))
+                               for col in zip(*vals))
         else:
-            kw[f.name] = int(sum(vals))
+            kw[f.name] = sum(int(v) * n for v, n in zip(vals, ns))
     return EventCounters(**kw)

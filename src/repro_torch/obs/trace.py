@@ -2,9 +2,12 @@
 
 The soft-GPU stack's observability layer: nested wall-clock **spans**
 (``drain -> partition -> compile -> residency -> dispatch ->
-device_sync -> collect``), point-in-time **instant events** (tier
-decisions, per-drain counter rollups) and **async pairs** (per-job
-submit -> deliver latency), all recorded against one monotonic clock
+device_sync -> collect``; ``residency`` splits into ``digest``,
+``pack`` and ``upload``, ``collect`` into ``download`` and
+``results``), point-in-time **instant events** (tier decisions,
+per-drain counter rollups) and **async pairs** (per-job submit ->
+deliver latency; a served request's ``queued`` and ``run`` phases
+inside its ``request`` pair), all recorded against one monotonic clock
 and exported as Chrome trace-event JSON — load the file at
 ``ui.perfetto.dev`` or ``chrome://tracing``.
 
@@ -172,20 +175,24 @@ class Tracer:
             "args": args,
         })
 
-    def async_begin(self, name: str, id: int, **args) -> None:
-        """Open one side of an async pair (e.g. job submit)."""
+    def async_begin(self, name: str, id: int, ts: float | None = None,
+                    **args) -> None:
+        """Open one side of an async pair (e.g. job submit).  ``ts``
+        (a :meth:`now_us` taken earlier) lets one instant close one
+        pair and open the next."""
         self._events.append({
             "name": name, "cat": "async", "ph": "b", "id": int(id),
-            "ts": self.now_us(), "pid": self._pid, "tid": self._tid(),
-            "args": args,
+            "ts": self.now_us() if ts is None else ts, "pid": self._pid,
+            "tid": self._tid(), "args": args,
         })
 
-    def async_end(self, name: str, id: int, **args) -> None:
+    def async_end(self, name: str, id: int, ts: float | None = None,
+                  **args) -> None:
         """Close an async pair (e.g. job result delivered)."""
         self._events.append({
             "name": name, "cat": "async", "ph": "e", "id": int(id),
-            "ts": self.now_us(), "pid": self._pid, "tid": self._tid(),
-            "args": args,
+            "ts": self.now_us() if ts is None else ts, "pid": self._pid,
+            "tid": self._tid(), "args": args,
         })
 
     def add_counters(self, counters: dict[str, int]) -> None:
