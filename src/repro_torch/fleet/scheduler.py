@@ -175,6 +175,48 @@ def _result_checksum(res: "JobResult") -> bytes:
     return h.digest()
 
 
+def _pinned_empty(shape) -> torch.Tensor:
+    """A page-locked int32 host tensor from torch's caching host
+    allocator: its block returns to the allocator's cache once the
+    tensor (and every numpy view of it) is dropped."""
+    return torch.empty(shape, dtype=torch.int32, pin_memory=True)
+
+
+def _download(outs: list[torch.Tensor]) -> tuple[torch.Tensor, str | None]:
+    """The final shared images ``outs`` (one a device, rows in order) as
+    one host ``(B, S)`` int32 tensor, and the host memory it came down
+    into: ``"pinned"`` or ``"pageable"``, ``None`` where nothing came
+    down from a card.
+
+    From a card, each shard is copied on its device's current stream
+    straight into its rows of a page-locked tensor.  The copy waits on
+    that stream alone, as :func:`sync` does, never on the whole card;
+    being blocking, it leaves the allocator no CUDA event to record for
+    the block, so freeing and reusing the block make no CUDA call, from
+    whichever thread drops the last result.
+    A result row is a view of that tensor, so its block is reused only
+    once every result of the batch is dropped: a later batch never
+    writes into results still held.  If the page-locked allocation
+    fails, the batch is copied to pageable memory instead.  On the CPU
+    the outputs themselves are the image (no copy)."""
+    on_card = outs[0].device.type == "cuda"
+    if on_card:
+        try:
+            host = _pinned_empty((sum(o.shape[0] for o in outs),
+                                  outs[0].shape[1]))
+        except RuntimeError:
+            pass                         # the pageable copy below
+        else:
+            row = 0
+            for o in outs:
+                host[row:row + o.shape[0]].copy_(o)
+                row += o.shape[0]
+            return host, "pinned"
+    host = (outs[0].cpu() if len(outs) == 1
+            else torch.cat([o.cpu() for o in outs]))
+    return host, "pageable" if on_card else None
+
+
 def _roll_up_counters(tr: obs_trace.Tracer,
                       results: dict[int, "JobResult"]) -> None:
     """The drain's ``drain_counters`` event and the tracer's running
@@ -413,6 +455,9 @@ def register_fleet_metrics(reg: obs_metrics.MetricsRegistry) -> None:
                 "host compile + graph capture + kernel build seconds")
     reg.counter("fleet_residency_lookups_total",
                 "device-resident input lookups", ("result",))
+    reg.counter("fleet_download_bytes_total",
+                "result bytes copied down from a card, by host memory",
+                ("host",))
     reg.counter("fleet_compile_cache_total",
                 "light-path graph plan lookups", ("result",))
     reg.counter("fleet_salvaged_jobs_total",
@@ -877,14 +922,21 @@ class FleetScheduler:
         compile-time path simulation — identical for every lock-step
         core running the program, and bit-identical to what ``run()``
         returns (the equivalence suites pin this).  ``shared`` comes
-        back as uint32 words, the reference's dtype.  Traced, the spans
-        ``download`` (with the ``bytes`` copied) and ``results``."""
+        back as uint32 words, the reference's dtype, viewing the host
+        image of :func:`_download`.  Bytes brought down from a card
+        count in ``fleet_download_bytes_total`` by ``host`` (``pinned``
+        or ``pageable``).  Traced, the spans ``download`` (with the
+        ``bytes`` copied and the ``pinned_bytes`` of them page-locked)
+        and ``results``."""
         with obs_trace.span("download") as sp:
-            shared = (outs[0].cpu() if len(outs) == 1
-                      else torch.cat([o.cpu() for o in outs]))
+            shared, host = _download(outs)
             shared = shared.numpy().view(np.uint32)
+            if host is not None:
+                self._m.inc("fleet_download_bytes_total", shared.nbytes,
+                            host=host)
             if sp.active:
-                sp.set(bytes=shared.nbytes)
+                sp.set(bytes=shared.nbytes, pinned_bytes=shared.nbytes
+                       if host == "pinned" else 0)
         with obs_trace.span("results"):
             sim = cp.sim
             zeros = np.zeros((isa.NUM_OP_CLASSES,), np.int32)

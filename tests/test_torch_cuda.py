@@ -1214,3 +1214,136 @@ def test_plan_threads_and_capture_beside_a_synchronise(dev):
     got = state_to_numpy(cp2.run_batch([other.shared_init] * 3, [16] * 3,
                                        device=dev))
     tp.assert_leaves_equal(cpu, got, "captured beside a synchronise")
+
+
+# ---------------------------------------------------------------------------
+# The copy down into page-locked host memory (fleet/scheduler._download)
+# ---------------------------------------------------------------------------
+
+def _down_jobs(cfg, seed, n=8):
+    """A reduction program and ``n`` fresh inputs for it."""
+    b = tprog.build_reduction(cfg, 32)
+    rng = np.random.default_rng(seed)
+    size = np.asarray(b.shared_init).size
+    return b, [rng.standard_normal(size).astype(np.float32)
+               for _ in range(n)]
+
+
+def _down_drain(sched, b, datas):
+    hs = [sched.submit(b.image, d, tdx_dim=b.tdx_dim) for d in datas]
+    rs = sched.drain()
+    return [rs[h] for h in hs]
+
+
+def _downloads(tracer):
+    return [e["args"] for e in tracer.events
+            if e.get("name") == "download" and e.get("ph") == "X"]
+
+
+def test_download_lands_in_pinned_memory_as_a_cpu_copy(dev):
+    """One card's image and a megabatch's shards come down into one
+    page-locked tensor equal word for word to ``.cpu()`` copies; a
+    ``Fleet`` drain and a sharded megabatch on the card equal the CPU
+    scheduler's results."""
+    from repro_torch.fleet import FleetScheduler, ShardedFleetScheduler
+    from repro_torch.fleet import scheduler as sched_mod
+    g = torch.Generator(device=dev).manual_seed(7)
+    shards = [torch.randint(-2**31, 2**31 - 1, (rows, 1024), generator=g,
+                            dtype=torch.int32, device=dev)
+              for rows in (4, 3, 5)]
+    for outs in (shards[:1], shards):
+        img, host = sched_mod._download(outs)
+        assert host == "pinned" and img.is_pinned()
+        assert img.device.type == "cpu"
+        assert torch.equal(img, torch.cat([o.cpu() for o in outs]))
+    cfg = tp.config(EGPUConfig, "dp")
+    b, datas = _down_jobs(cfg, 1)
+    exp = _down_drain(FleetScheduler(cfg, 4, device="cpu"), b, datas)
+    for sched in (FleetScheduler(cfg, 4, device=dev),
+                  ShardedFleetScheduler(cfg, batch_size=4,
+                                        devices=[torch.device("cuda", 0)])):
+        got = _down_drain(sched, b, datas)
+        for r, x in zip(got, exp):
+            assert np.array_equal(r.shared, x.shared)
+            assert (r.cycles, r.steps) == (x.cycles, x.steps)
+    assert sched.stats.per_device()["mesh"]["jobs"] == len(datas)
+
+
+def test_download_counts_pinned_bytes(dev):
+    """Each batch's ``download`` span carries ``pinned_bytes`` equal to
+    its ``bytes``, and the counter's ``pinned`` label grows by
+    B x S x 4 a batch."""
+    from repro_torch.fleet import FleetScheduler
+    cfg = tp.config(EGPUConfig, "dp")
+    b, datas = _down_jobs(cfg, 2)
+    sched = FleetScheduler(cfg, 4, device=dev, trace=True)
+    reg = sched.stats.registry
+    per_batch = 4 * cfg.shared_words * 4
+    for k in (1, 2):
+        _down_drain(sched, b, datas)
+        assert reg.value("fleet_download_bytes_total", host="pinned") \
+            == 2 * k * per_batch
+    assert reg.value("fleet_download_bytes_total", host="pageable") == 0
+    downs = _downloads(sched.tracer)
+    assert len(downs) == 4
+    assert all(a["pinned_bytes"] == a["bytes"] == per_batch for a in downs)
+
+
+def test_download_falls_back_to_pageable_memory(dev, monkeypatch):
+    """A page-locked allocation that raises costs the batch its pinned
+    copy, never its results: they equal the CPU's, and the bytes count
+    under ``pageable``."""
+    from repro_torch.fleet import FleetScheduler
+    from repro_torch.fleet import scheduler as sched_mod
+
+    def refuse(shape):
+        raise RuntimeError("page-locked allocation refused")
+
+    monkeypatch.setattr(sched_mod, "_pinned_empty", refuse)
+    cfg = tp.config(EGPUConfig, "dp")
+    b, datas = _down_jobs(cfg, 3)
+    exp = _down_drain(FleetScheduler(cfg, 4, device="cpu"), b, datas)
+    sched = FleetScheduler(cfg, 4, device=dev, trace=True)
+    got = _down_drain(sched, b, datas)
+    for r, x in zip(got, exp):
+        assert np.array_equal(r.shared, x.shared)
+    reg = sched.stats.registry
+    assert reg.value("fleet_download_bytes_total", host="pageable") \
+        == 2 * 4 * cfg.shared_words * 4
+    assert reg.value("fleet_download_bytes_total", host="pinned") == 0
+    assert all(a["pinned_bytes"] == 0 for a in _downloads(sched.tracer))
+
+
+def test_held_results_survive_later_drains_on_the_card(dev):
+    """The results of drain k, still held, are unchanged after drains
+    k+1 and k+2 of other inputs, whose page-locked images come from the
+    same allocator."""
+    from repro_torch.fleet import FleetScheduler
+    cfg = tp.config(EGPUConfig, "dp")
+    sched = FleetScheduler(cfg, 4, device=dev)
+    b, datas = _down_jobs(cfg, 4)
+    held = _down_drain(sched, b, datas)
+    words = [r.shared.copy() for r in held]
+    for seed in (5, 6):
+        later = _down_drain(sched, b, _down_jobs(cfg, seed)[1])
+        assert any(not np.array_equal(x.shared, y.shared)
+                   for x, y in zip(held, later))
+        del later
+    for k, (r, w) in enumerate(zip(held, words)):
+        assert np.array_equal(r.shared, w), k
+
+
+def test_dropped_results_reuse_the_pinned_blocks(dev):
+    """With each drain's results dropped before the next, the caching
+    host allocator makes no new page-locked block after the first
+    drain."""
+    from repro_torch.fleet import FleetScheduler
+    cfg = tp.config(EGPUConfig, "dp")
+    sched = FleetScheduler(cfg, 4, device=dev)
+    b = _down_jobs(cfg, 7)[0]
+    _down_drain(sched, b, _down_jobs(cfg, 8)[1])
+    n0 = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for seed in (9, 10, 11):
+        res = _down_drain(sched, b, _down_jobs(cfg, seed)[1])
+        del res
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == n0
